@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port of VeloANN.
+"""On-card smoke run of the PyTorch/CUDA port of VeloANN and its KV serving plane.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
@@ -7,8 +7,11 @@ Phases (each one that fails ends the run with a non-zero exit):
   1. device   require CUDA, print the card's name and power limit, turn TF32 off
   2. build    compile src/repro_torch/csrc/*.cu for sm_90a (one nvcc each, in
               parallel) into build/kernels/librepro_torch_kernels.so
-  3. kernels  each CUDA kernel against its plain PyTorch version on the card at
-              the search path's shapes and at SIFT1M scale: max error, kernel,
+  3. kernels  each CUDA kernel against its plain PyTorch version on the card:
+              binary_ip / int4_dist at the search path's shapes and at SIFT1M
+              scale; paged_attention at Yi-6B widths (B x context sweep, bf16
+              and fp32 pages); flash_attention at Yi-6B prefill, a gemma3-1b
+              local layer and whisper-small's encoder.  Max error, kernel,
               plain and library-yardstick times (CUDA events, median of 30),
               and the least time the card could take (the bound)
   4. tables   a 1M x 128 index registered once in the torch distance engine;
@@ -19,7 +22,13 @@ Phases (each one that fails ends the run with a non-zero exit):
               device_beam off/on, against the batch engine on the same index;
               the kernels' launch counters are set to 0 before each torch run
               and read after it
-  6. report   one JSON line of per-kernel numbers, then the card line and the
+  6. kv serve the paged KV serving plane end to end, twice: a PagedKVPool of
+              bf16 pages at Yi-6B widths on the card, a CacheAwareScheduler
+              over 48 seeded requests, one paged_attention launch per decode
+              step (tables from PagedKVPool.batch_block_tables); 1 024 pages,
+              oversubscribed (clock eviction and swap-in), then 60 000 pages,
+              one layer's share of the card, which the traffic fits
+  7. report   one JSON line of per-kernel numbers, then the card line and the
               final {"ok": true, ...} line
 
 Imports torch, numpy and the port (src/repro_torch) only.
@@ -35,6 +44,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.nn.functional import scaled_dot_product_attention as sdpa
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -47,25 +57,79 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.binary_ip import kernel as bip_kernel  # noqa: E402
 from repro_torch.kernels.binary_ip import ops as bip_ops  # noqa: E402
 from repro_torch.kernels.binary_ip import ref as bip_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.int4_dist import kernel as i4_kernel  # noqa: E402
 from repro_torch.kernels.int4_dist import ops as i4_ops  # noqa: E402
 from repro_torch.kernels.int4_dist import ref as i4_ref  # noqa: E402
+from repro_torch.kernels.paged_attention import kernel as pa_kernel  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
+from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
+from repro_torch.serving.kv_pool import PagedKVPool  # noqa: E402
+from repro_torch.serving.scheduler import CacheAwareScheduler, ServeRequest  # noqa: E402
 
-# H100 SXM data-sheet peaks: HBM3 bytes/s and fp32 (non-tensor) flop/s
+# H100 SXM data-sheet peaks: HBM3 bytes/s, fp32 (non-tensor) and bf16
+# (dense tensor-core) flop/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+PEAK_FLOP_PER_S = {torch.float32: FP32_FLOP_PER_S, torch.bfloat16: BF16_FLOP_PER_S}
 # kernel vs plain: fp32 sums in another order (tests/test_kernels.py's bars)
 TOL = {"binary_ip": dict(rtol=1e-5, atol=1e-4), "int4_dist": dict(rtol=1e-4, atol=1e-3)}
+# attention kernel vs plain on the same inputs, by input dtype.  Both compute
+# in fp32 (sums in another order: under 1e-6 apart) and round the output to
+# the input dtype once, so in bf16 they differ by at most one bf16 ulp (2^-7
+# of the value) where their fp32 results straddle a rounding point
+ATTN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5), torch.bfloat16: dict(rtol=1e-2, atol=1e-4)}
+# the SDPA yardstick vs plain, a check that it computes the same function
+# (its masks), not of its accuracy: in bf16 its kernels round each
+# probability to bf16 before the product with V, an error of 2^-9 of each
+# p * v term that does not shrink with the output where terms cancel
+# (readings on an H100 up to 1.6e-2, at outputs below 0.7)
+LIB_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5), torch.bfloat16: dict(rtol=2e-2, atol=3e-2)}
+# Yi-6B attention (src/repro/configs/yi_6b.py): 32 query heads, 4 KV heads,
+# head dim 128; KV pages of 16 tokens
+YI = dict(H=32, KVH=4, Dh=128, page=16)
 # engine vs the NumPy batch engine, whose estimator epilogue is float64
 HOST_TOL = dict(rtol=2e-3, atol=2e-3)
+# every kernel: its source, the TPU kernel it replaces, its launch counter,
+# the phase whose run gives its reported launches, and the row (shape, input
+# dtype) whose times the report carries
+SIFT1M_FLUSH = ("B=8 N=256 d=128 table=1000000 gathered", "float32")
 KERNELS = {
     "binary_ip": dict(source="src/repro_torch/csrc/binary_ip.cu",
                       replaces="src/repro/kernels/binary_ip/kernel.py:28",
-                      counter=bip_kernel),
+                      counter=bip_kernel, path="search", main=SIFT1M_FLUSH),
     "int4_dist": dict(source="src/repro_torch/csrc/int4_dist.cu",
                       replaces="src/repro/kernels/int4_dist/kernel.py:27",
-                      counter=i4_kernel),
+                      counter=i4_kernel, path="search", main=SIFT1M_FLUSH),
+    # a decode step of 8 sequences x 2048 tokens, bf16 pages
+    "paged_attention": dict(source="src/repro_torch/csrc/paged_attention.cu",
+                            replaces="src/repro/kernels/paged_attention/kernel.py:29",
+                            counter=pa_kernel, path="kv serve", main=("B=8 ctx=2048", "bfloat16")),
+    # no system path calls it: its launches are phase 3's
+    "flash_attention": dict(source="src/repro_torch/csrc/flash_attention.cu",
+                            replaces="src/repro/kernels/flash_attention/kernel.py:33",
+                            counter=fa_kernel, path="attention kernels",
+                            main=("yi-6b prefill S=2048", "bfloat16")),
 }
+# kv serve: the pool cut so that 16 live requests of ~1 280 tokens (~1 300
+# pages) oversubscribe it, and one layer's share of an 80 GB card for Yi-6B
+# in bf16 ((80 GB - 12 GB of weights) / 32 layers / 32 KiB a page, less
+# headroom), where the same traffic never evicts
+KV_CUT_PAGES, KV_LAYER_PAGES = 1024, 60_000
+KV_REQUESTS = 48
+KV_CHECK_EVERY = 16  # decode steps between checks against the plain version
+
+
+def reset_launches() -> None:
+    for spec in KERNELS.values():
+        spec["counter"].launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    return {name: spec["counter"].launches for name, spec in KERNELS.items()}
 
 
 def require(cond: bool, what: str) -> None:
@@ -80,14 +144,18 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median device time of one call, CUDA events around each call."""
+def time_ms(fn, reps: int = 30, warmup: int = 5, flush: torch.Tensor | None = None) -> float:
+    """Median device time of one call, CUDA events around each call; with
+    ``flush``, the buffer is overwritten before each call (outside the
+    events) so that the call finds its inputs out of the L2 cache."""
     for _ in range(warmup):
         fn()
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(reps)]
     torch.cuda.synchronize()
     for start, end in ev:
+        if flush is not None:
+            flush.zero_()
         start.record()
         fn()
         end.record()
@@ -107,28 +175,37 @@ def host_ms(fn, reps: int = 20) -> float:
     return float(np.median(out))
 
 
-def device_us(fn, reps: int = 30) -> float | None:
+def device_us(fn, reps: int = 30, flush: torch.Tensor | None = None,
+              key: str | None = None) -> float | None:
     """Device time of one call in microseconds: the summed self time of the
-    kernels the CUDA profiler (CUPTI) records over ``reps`` calls, per call.
-    None when the profiler records no device time."""
+    kernels the CUDA profiler (CUPTI) records over ``reps`` calls, per call
+    (only kernels whose name holds ``key``, when given; ``flush`` as in
+    ``time_ms``).  None when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages())
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if key is None or key in e.key)
     return total / reps if total > 0 else None
 
 
-def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound_ms(nbytes: int, flops: int, flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # ------------------------------------------------------------------ phase 3
+
+
+def _shape(B: int, N: int, d: int, T: int, gather: bool) -> str:
+    return f"B={B} N={N} d={d} table={T} {'gathered' if gather else 'sweep'}"
 
 
 def check_binary_ip(dev, gen, B, N, d, T, gather, q_dtype=torch.float32) -> dict:
@@ -151,8 +228,8 @@ def check_binary_ip(dev, gen, B, N, d, T, gather, q_dtype=torch.float32) -> dict
     nbytes = q.numel() * q.element_size() + N * d // 8 + (N * 8 if gather else 0) + B * N * 4
     b_ms, b_by = bound_ms(nbytes, 2 * B * N * d)
     return dict(
-        kernel="binary_ip", B=B, N=N, d=d, table=T, gather=gather, q=str(q_dtype)[6:],
-        max_abs_err=err,
+        kernel="binary_ip", shape=_shape(B, N, d, T, gather), B=B, N=N, d=d, table=T,
+        dtype=str(q_dtype)[6:], max_abs_err=err,
         ms=time_ms(lambda: bip_ops.binary_ip(q, codes, ids)),
         plain_ms=time_ms(plain),
         library_ms=time_ms(lambda: torch.matmul(qf, signs.T)),
@@ -184,8 +261,8 @@ def check_int4_dist(dev, gen, B, N, d, T, gather) -> dict:
     nbytes = B * d * 4 + N * (d // 2 + 8) + (N * 8 if gather else 0) + B * N * 4
     b_ms, b_by = bound_ms(nbytes, 2 * B * N * d + 4 * N * d)
     return dict(
-        kernel="int4_dist", B=B, N=N, d=d, table=T, gather=gather, q="float32",
-        max_abs_err=err,
+        kernel="int4_dist", shape=_shape(B, N, d, T, gather), B=B, N=N, d=d, table=T,
+        dtype="float32", max_abs_err=err,
         ms=time_ms(lambda: i4_ops.int4_dist2(q, codes, lo, step, ids)),
         plain_ms=time_ms(plain),
         library_ms=time_ms(lambda: torch.matmul(q, x.T)),
@@ -218,10 +295,145 @@ def phase_kernels(dev) -> list[dict]:
           f"{'dev_us':>8} {'pl_dev_us':>9} by")
     for r in rows:
         print(f"{r['kernel']:10} {r['B']:>2} {r['N']:>8} {r['d']:>4} {r['table']:>8} "
-              f"{r['q']:>8} {r['max_abs_err']:9.2e} {r['ms']:9.5f} {r['plain_ms']:9.5f} "
+              f"{r['dtype']:>8} {r['max_abs_err']:9.2e} {r['ms']:9.5f} {r['plain_ms']:9.5f} "
               f"{r['library_ms']:9.5f} {r['bound_ms']:9.6f} {_us(r['device_us']):>8} "
               f"{_us(r['plain_device_us']):>9} {r['bound_by']}")
     return rows
+
+
+def _check(kernel: str, shape: str, dtype, got, want, lib_out) -> tuple[float, float]:
+    """Hold a kernel's output and the yardstick's against the plain
+    version's; their max abs errors."""
+    torch.cuda.synchronize()
+    got, want, lib_out = got.float(), want.float(), lib_out.float()
+    err = float((got - want).abs().max())
+    lib_err = float((lib_out - want).abs().max())
+    tag = f"{shape} {str(dtype)[6:]}"
+    require(torch.allclose(got, want, **ATTN_TOL[dtype]),
+            f"{kernel} disagrees with its plain version at {tag}: {err}")
+    require(torch.allclose(lib_out, want, **LIB_TOL[dtype]),
+            f"the SDPA yardstick computes another function at {tag}: {lib_err}")
+    return err, lib_err
+
+
+def check_paged(dev, gen, B, ctx, dtype, flush) -> dict:
+    """paged_attention at Yi-6B widths: B sequences of ``ctx`` tokens (the
+    last one ragged: 7 tokens, below a page; at B = 1, ctx - 5), block
+    tables a seeded permutation of the B * ctx / 16 pages.  Times are taken
+    with the L2 cache flushed before each call, as a decode step finds one
+    layer's pages."""
+    H, KVH, Dh, page = YI["H"], YI["KVH"], YI["Dh"], YI["page"]
+    max_pages = ctx // page
+    P = B * max_pages
+    q = torch.randn(B, H, Dh, generator=gen, device=dev).to(dtype)
+    kp = torch.randn(P, page, KVH, Dh, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(P, page, KVH, Dh, generator=gen, device=dev).to(dtype)
+    bt = torch.randperm(P, generator=gen, device=dev).to(torch.int32).reshape(B, max_pages)
+    cl = torch.full((B,), ctx, dtype=torch.int32, device=dev)
+    cl[-1] = 7 if B > 1 else ctx - 5
+
+    def kernel():
+        return pa_ops.paged_attention(q, kp, vp, bt, cl)
+
+    def plain():
+        return pa_ref.paged_attention_ref(q, kp, vp, bt, cl)
+
+    # the yardstick: one SDPA call on K/V gathered dense beforehand, with a
+    # boolean mask of the context lengths
+    S = max_pages * page
+    kd = kp[bt.long()].reshape(B, S, KVH, Dh).transpose(1, 2).contiguous()
+    vd = vp[bt.long()].reshape(B, S, KVH, Dh).transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device=dev)[None, :] < cl[:, None])[:, None, None, :]
+
+    def library():
+        return sdpa(q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True)
+
+    err, lib_err = _check("paged_attention", f"B={B} ctx={ctx}", dtype, kernel(), plain(),
+                          library()[:, :, 0])
+    tokens = int(cl.sum())
+    es = q.element_size()
+    pages_read = int(((cl + page - 1) // page).sum())
+    nbytes = 2 * q.numel() * es + 2 * tokens * KVH * Dh * es + pages_read * 4 + B * 4
+    b_ms, b_by = bound_ms(nbytes, 4 * H * Dh * tokens, PEAK_FLOP_PER_S[dtype])
+    return dict(
+        kernel="paged_attention", shape=f"B={B} ctx={ctx}", B=B, ctx=ctx,
+        dtype=str(dtype)[6:], max_abs_err=err, library_err=lib_err,
+        ms=time_ms(kernel, flush=flush), plain_ms=time_ms(plain, flush=flush),
+        library_ms=time_ms(library, flush=flush),
+        device_us=device_us(kernel, flush=flush, key="paged_attention"),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes,
+    )
+
+
+def check_flash(dev, gen, name, B, H, KVH, S, Dh, causal, window, dtype) -> dict:
+    """flash_attention on one prefill: q, k, v of S tokens."""
+    q = torch.randn(B, H, S, Dh, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, KVH, S, Dh, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, KVH, S, Dh, generator=gen, device=dev).to(dtype)
+
+    def kernel():
+        return fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+
+    def plain():
+        return fa_ref.attention_ref(q, k, v, causal=causal, window=window)
+
+    # the yardstick: SDPA, whose is_causal aligns top-left, so a window gets
+    # an explicit boolean mask (Sq == Skv here)
+    pos = torch.arange(S, device=dev)
+    mask = torch.ones(S, S, dtype=torch.bool, device=dev)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+
+    def library():
+        if window is None:
+            return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+        return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+
+    err, lib_err = _check("flash_attention", name, dtype, kernel(), plain(), library())
+    pairs = int(mask.sum())
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    b_ms, b_by = bound_ms(nbytes, 4 * B * H * Dh * pairs, PEAK_FLOP_PER_S[dtype])
+    return dict(
+        kernel="flash_attention", shape=name, B=B, H=H, KVH=KVH, S=S, Dh=Dh, causal=causal,
+        window=window, dtype=str(dtype)[6:], max_abs_err=err, library_err=lib_err,
+        ms=time_ms(kernel), plain_ms=time_ms(plain), library_ms=time_ms(library),
+        device_us=device_us(kernel, key="flash_attention"),
+        bound_ms=b_ms, bound_by=b_by, flops=4 * B * H * Dh * pairs,
+    )
+
+
+def phase_attention(dev, card: str) -> tuple[list[dict], dict[str, int]]:
+    """Phase 3's attention rows and the launches they made (flash_attention's
+    only ones: no system path of the package calls that kernel)."""
+    reset_launches()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB > the 50 MB L2
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for B in (1, 8, 32):
+            for ctx in (512, 2048, 4096):
+                rows.append(check_paged(dev, gen, B, ctx, dtype, flush))
+    del flush
+    yi = dict(B=1, H=YI["H"], KVH=YI["KVH"], Dh=YI["Dh"], causal=True, window=None)
+    for S in (512, 2048):
+        rows.append(check_flash(dev, gen, f"yi-6b prefill S={S}", S=S, dtype=torch.bfloat16, **yi))
+    rows.append(check_flash(dev, gen, "gemma3-1b local S=2048 w=512", 1, 4, 1, 2048, 256,
+                            True, 512, torch.bfloat16))
+    rows.append(check_flash(dev, gen, "whisper-small encoder S=1500", 1, 12, 12, 1500, 64,
+                            False, None, torch.bfloat16))
+    rows.append(check_flash(dev, gen, "yi-6b prefill S=512", S=512, dtype=torch.float32, **yi))
+    launches = read_launches()
+    print(f"attention kernels on {card}:")
+    print(f"{'kernel':15} {'shape':30} {'dtype':8} {'max_err':>9} {'lib_err':>9} {'ms':>9} "
+          f"{'plain_ms':>9} {'lib_ms':>9} {'bound_ms':>9} {'dev_us':>9} by")
+    for r in rows:
+        print(f"{r['kernel']:15} {r['shape']:30} {r['dtype']:8} {r['max_abs_err']:9.2e} "
+              f"{r['library_err']:9.2e} {r['ms']:9.5f} {r['plain_ms']:9.5f} "
+              f"{r['library_ms']:9.5f} {r['bound_ms']:9.6f} {_us(r['device_us']):>9} "
+              f"{r['bound_by']}")
+    return rows, launches
 
 
 # ------------------------------------------------------------------ phase 4
@@ -297,13 +509,12 @@ def _velo(ds, graph, qb, backend, device_beam):
 
 def _search(ds, graph, qb, backend, device_beam) -> dict:
     system = _velo(ds, graph, qb, backend, device_beam)
-    for spec in KERNELS.values():
-        spec["counter"].launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     results, stats = system.run(ds.queries)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: spec["counter"].launches for name, spec in KERNELS.items()}
+    launches = {n: v for n, v in read_launches().items() if KERNELS[n]["path"] == "search"}
     ids = np.full((len(results), ds.k), -1, dtype=np.int64)
     for i, r in enumerate(results):
         ids[i, : min(ds.k, len(r.ids))] = r.ids[: ds.k]
@@ -361,6 +572,95 @@ def _busy_share(ds, graph, qb, n_queries: int = 50) -> dict:
                 top=[[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in avgs[:8]])
 
 
+# ------------------------------------------------------------------ phase 6
+
+
+def phase_kv_serve(dev, card: str, n_pages: int, thrash: bool) -> dict:
+    """The paged KV serving plane end to end on the card: one layer's pool of
+    ``n_pages`` bf16 pages at Yi-6B widths, continuous batching over
+    KV_REQUESTS requests, one paged_attention launch per decode step.
+    Prompts and decode tokens are K/V made on the card from a seeded
+    generator: there is no model.  ``thrash`` says whether the traffic must
+    oversubscribe the pool (evictions and swap-ins) or fit it (neither)."""
+    H, KVH, Dh, page = YI["H"], YI["KVH"], YI["Dh"], YI["page"]
+    dtype = torch.bfloat16
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    pool = PagedKVPool(n_pages, page, KVH, Dh, dtype=dtype, device=dev)
+    sched = CacheAwareScheduler(pool, max_batch=8, max_running=16)
+    # the length mix is a guess, not taken from a published trace
+    prompt_lens = rng.integers(512, 2049, KV_REQUESTS)
+    new_tokens = rng.integers(32, 65, KV_REQUESTS)
+    for rid in range(KV_REQUESTS):
+        sched.submit(ServeRequest(rid, int(prompt_lens[rid]), int(new_tokens[rid])))
+    reset_launches()
+    steps = tokens = prefill_tokens = checks = 0
+    max_err, attn = 0.0, []
+    host_s = dict(prefill=0.0, decode_append=0.0, tables=0.0, launch=0.0)  # host clock
+    t0 = time.perf_counter()
+    while not sched.idle:
+        batch = sched.next_batch()
+        t1 = time.perf_counter()
+        for req in sched.running.values():  # prefill the prompts of admitted requests
+            if pool.requests[req.rid].context_len == 0:
+                kv = torch.randn(req.prompt_len, 2, KVH, Dh, generator=gen, device=dev).to(dtype)
+                for t in range(req.prompt_len):
+                    pool.append_token(req.rid, kv[t, 0], kv[t, 1])
+                prefill_tokens += req.prompt_len
+        t2 = time.perf_counter()
+        kv = torch.randn(len(batch), 2, KVH, Dh, generator=gen, device=dev).to(dtype)
+        for i, req in enumerate(batch):
+            pool.append_token(req.rid, kv[i, 0], kv[i, 1])
+        t3 = time.perf_counter()
+        rids = [r.rid for r in batch]
+        max_pages = max(len(pool.requests[r].block_table) for r in rids)
+        bt = torch.from_numpy(pool.batch_block_tables(rids, max_pages)).to(dev)
+        cl = torch.tensor([pool.requests[r].context_len for r in rids], dtype=torch.int32,
+                          device=dev)
+        q = torch.randn(len(batch), H, Dh, generator=gen, device=dev).to(dtype)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t4 = time.perf_counter()
+        start.record()
+        out = pa_ops.paged_attention(q, pool.k_pages, pool.v_pages, bt, cl)
+        end.record()
+        t5 = time.perf_counter()
+        attn.append((start, end))
+        for name, dt in zip(host_s, (t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+            host_s[name] += dt
+        if steps % KV_CHECK_EVERY == 0:
+            want = pa_ref.paged_attention_ref(q, pool.k_pages, pool.v_pages, bt, cl)
+            err = float((out.float() - want.float()).abs().max())
+            require(torch.allclose(out.float(), want.float(), **ATTN_TOL[dtype]),
+                    f"kv serve step {steps}: paged_attention disagrees with its plain version: {err}")
+            max_err, checks = max(max_err, err), checks + 1
+        sched.complete_step(batch)
+        steps += 1
+        tokens += len(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    attn_ms = [s.elapsed_time(e) for s, e in attn]
+    out = dict(card=card, pages=n_pages, page_tokens=page, pool_bytes=2 * pool.k_pages.numel() * 2,
+               requests=KV_REQUESTS, steps=steps, decode_tokens=tokens,
+               prefill_tokens=prefill_tokens, evictions=pool.evictions, swap_ins=pool.swap_ins,
+               hit_rate=pool.hit_rate(), attention_ms_per_step_median=float(np.median(attn_ms)),
+               attention_ms_per_step_mean=float(np.mean(attn_ms)), wall_s=wall,
+               host_s=host_s, checks=checks, max_abs_err=max_err,
+               table_repasses=pool.table_repasses, launches=launches)
+    print("kv serve:", json.dumps(out))
+    require(sorted(sched.completed) == list(range(KV_REQUESTS)),
+            "kv serve: a request never completed")
+    require(tokens == int(new_tokens.sum()), f"kv serve: {tokens} decode tokens, "
+            f"expected {int(new_tokens.sum())}")
+    require(launches["paged_attention"] == steps,
+            f"kv serve: {launches['paged_attention']} paged_attention launches for {steps} steps")
+    swapped = (pool.evictions > 0 and pool.swap_ins > 0) if thrash else \
+        (pool.evictions == pool.swap_ins == 0)
+    require(swapped, f"kv serve on {n_pages} pages: {pool.evictions} evictions, "
+            f"{pool.swap_ins} swap-ins")
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -386,27 +686,44 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  ptxas:", line.strip())
 
+    phase_s = {}
+    t0 = time.perf_counter()
     rows = phase_kernels(dev)
+    phase_s["kernels"] = time.perf_counter() - t0
+    attn_rows, attn_launches = phase_attention(dev, card)
+    phase_s["attention kernels"] = time.perf_counter() - t0 - sum(phase_s.values())
     tables = phase_tables(np.random.default_rng(0))
+    phase_s["tables"] = time.perf_counter() - t0 - sum(phase_s.values())
     search = phase_search()
+    phase_s["search"] = time.perf_counter() - t0 - sum(phase_s.values())
+    kv = [phase_kv_serve(dev, card, KV_CUT_PAGES, thrash=True),
+          phase_kv_serve(dev, card, KV_LAYER_PAGES, thrash=False)]
+    phase_s["kv serve"] = time.perf_counter() - t0 - sum(phase_s.values())
+    print(f"phase seconds on {card}:", json.dumps(phase_s))
 
+    # each kernel's launches on its path, summed over that path's runs
+    path_launches = {
+        "search": {n: sum(r["launches"][n] for r in search["torch"])
+                   for n, spec in KERNELS.items() if spec["path"] == "search"},
+        "kv serve": {n: sum(r["launches"][n] for r in kv) for n in KERNELS},
+        "attention kernels": attn_launches,
+    }
     report = []
     for name, spec in KERNELS.items():
-        # the flush shape at SIFT1M scale: 8 queries x 256 rows gathered by id
-        # from the 1M-row resident table
-        main = next(r for r in rows if r["kernel"] == name and r["B"] == 8
-                    and r["N"] == 256 and r["table"] == 1_000_000)
+        mine = [r for r in rows + attn_rows if r["kernel"] == name]
+        main = next(r for r in mine if (r["shape"], r["dtype"]) == spec["main"])
         report.append(dict(
             name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],
-            launches=sum(r["launches"][name] for r in search["torch"]),
-            max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
+            launches=path_launches[spec["path"]][name],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
         ))
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        dict(card=card, kernels=report, shapes=rows, tables=tables, search=search), indent=1))
+        dict(card=card, kernels=report, shapes=rows, attention=attn_rows, tables=tables,
+             search=search, kv_serve=kv, phase_s=phase_s), indent=1))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

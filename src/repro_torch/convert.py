@@ -1,4 +1,4 @@
-"""Carry an index image built elsewhere into this package's dataclasses.
+"""Carry state built elsewhere into this package's objects.
 
 An index is the quantized base (``QuantizedBase``) and the proximity graph
 (``VamanaGraph``).  Another build of the same system — the JAX package, or a
@@ -6,6 +6,11 @@ saved image — hands them over as plain values: NumPy arrays, ints, floats and
 the affinity map as a dict.  ``index_from_reference`` checks that every field
 is present with the type this package stores, and copies the arrays, so both
 sides then search one index bit for bit without sharing memory.
+
+A paged KV pool mid-run travels the same way: ``kv_pool_from_reference``
+takes its pages, page states, owners, clock hand, block tables, swap store
+and counters as plain values and builds a ``PagedKVPool`` that continues
+from exactly that state.
 """
 
 from __future__ import annotations
@@ -13,9 +18,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.quant import QuantizedBase
 from repro_torch.core.vamana import VamanaGraph
+from repro_torch.serving.kv_pool import PagedKVPool
 
 # array field -> the dtype the build gives it
 _QB_ARRAYS = {
@@ -81,3 +88,56 @@ def index_from_reference(
     if out_graph.adjacency.shape != (n, out_graph.R):
         raise ValueError("graph.adjacency must be (n, R) with the quantized base's n")
     return out_qb, out_graph
+
+
+_POOL_FIELDS = {"k_pages", "v_pages", "state", "owner", "hand", "requests", "swap",
+                "hits", "misses", "evictions", "swap_ins"}
+
+
+def kv_pool_from_reference(
+    fields: dict[str, object], device: str | torch.device | None = None
+) -> PagedKVPool:
+    """A ``PagedKVPool`` on ``device`` in the state another build's pool
+    hands over as plain values: ``k_pages``/``v_pages`` (P, page, KVH, Dh)
+    float32 arrays, ``state`` (P,) int8, ``owner`` (P, 2) int64,
+    ``hand``, ``requests`` as {rid: (block_table, context_len)}, ``swap`` as
+    {(rid, logical_page): (k, v)} with (page, KVH, Dh) arrays, and the
+    counters ``hits``, ``misses``, ``evictions`` and ``swap_ins``."""
+    missing, extra = _POOL_FIELDS - set(fields), set(fields) - _POOL_FIELDS
+    if missing or extra:
+        raise ValueError(
+            f"kv_pool: missing fields {sorted(missing)}, unknown fields {sorted(extra)}")
+    k_pages = _array("kv_pool", "k_pages", fields["k_pages"], np.float32)
+    v_pages = _array("kv_pool", "v_pages", fields["v_pages"], np.float32)
+    if k_pages.ndim != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError("kv_pool.k_pages and v_pages must both be (P, page, KVH, Dh)")
+    n_pages, page, kvh, dh = k_pages.shape
+    state = _array("kv_pool", "state", fields["state"], np.int8)
+    owner = _array("kv_pool", "owner", fields["owner"], np.int64)
+    if state.shape != (n_pages,) or owner.shape != (n_pages, 2):
+        raise ValueError("kv_pool.state must be (P,) and kv_pool.owner (P, 2)")
+    hand = int(fields["hand"])
+    if not 0 <= hand < n_pages:
+        raise ValueError(f"kv_pool.hand {hand} outside [0, {n_pages})")
+
+    pool = PagedKVPool(n_pages, page, kvh, dh, dtype=torch.float32, device=device)
+    pool.k_pages.copy_(torch.from_numpy(k_pages))
+    pool.v_pages.copy_(torch.from_numpy(v_pages))
+    pool.state[:] = state
+    pool.owner[:] = owner
+    pool.hand = hand
+    for rid, (block_table, context_len) in dict(fields["requests"]).items():
+        req = pool.add_request(int(rid))
+        req.block_table = [int(p) for p in block_table]
+        req.context_len = int(context_len)
+    for (rid, lp), (k, v) in dict(fields["swap"]).items():
+        pair = []
+        for name, arr in (("k", k), ("v", v)):
+            arr = _array("kv_pool", f"swap[{rid}, {lp}].{name}", arr, np.float32)
+            if arr.shape != (page, kvh, dh):
+                raise ValueError(f"kv_pool.swap[{rid}, {lp}].{name} must be (page, KVH, Dh)")
+            pair.append(torch.from_numpy(arr))
+        pool.swap[(int(rid), int(lp))] = (pair[0], pair[1])
+    for name in ("hits", "misses", "evictions", "swap_ins"):
+        setattr(pool, name, int(fields[name]))
+    return pool

@@ -30,12 +30,11 @@
 #include <cmath>
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kRows = 128;  // code rows per block, one per thread
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // Load VB bytes of a code row (VB in {16, 8, 4, 1}) as little-endian words.
 template <int VB>

@@ -1,7 +1,8 @@
 """Build the CUDA kernels and load them with ctypes.
 
 Every ``src/repro_torch/csrc/*.cu`` is compiled for ``sm_90a`` by its own
-``nvcc`` (all started together), and the objects are linked into one shared
+``nvcc`` (all started together; the ``*.cuh`` headers beside them are
+included, not compiled), and the objects are linked into one shared
 library with a plain C interface, ``build/kernels/librepro_torch_kernels.so``
 at the root of the checkout.  The build runs at first use in a process and is
 skipped when a stamp of the sources and flags matches the library on disk.
@@ -31,6 +32,12 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
+# q, k_pages, v_pages, block_tables, context_lens, out,
+# B, H, KVH, Dh, page, max_pages, n_pages, scale, device, stream
+_PAGED = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64, _F, _I, _P)
+# q, k, v, out, B, H, KVH, Sq, Skv, Dh, causal, has_window, window, scale, device, stream
+_FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P)
 # C entry -> argtypes; every entry returns its launch's cudaError_t as int
 SIGNATURES = {
     # q, codes, ids, out, B, N, d, n_table, device, stream
@@ -38,6 +45,10 @@ SIGNATURES = {
     "binary_ip_bf16": (_P, _P, _P, _P, _I, _I, _I, _I64, _I, _P),
     # q, codes, lo, step, ids, out, B, N, d, n_table, device, stream
     "int4_dist_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _I, _P),
+    "paged_attention_f32": _PAGED,
+    "paged_attention_bf16": _PAGED,
+    "flash_attention_f32": _FLASH,
+    "flash_attention_bf16": _FLASH,
 }
 
 _lock = threading.Lock()
@@ -63,7 +74,7 @@ def _nvcc() -> str:
 
 def _stamp(srcs: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in [*srcs, *sorted(CSRC.glob("*.cuh"))]:  # the sources and the headers they share
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()
