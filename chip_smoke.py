@@ -44,6 +44,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.nn.functional import scaled_dot_product_attention as sdpa
 
 ROOT = Path(__file__).resolve().parent
@@ -91,6 +92,16 @@ LIB_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5), torch.bfloat16: dict(rtol=
 # Yi-6B attention (src/repro/configs/yi_6b.py): 32 query heads, 4 KV heads,
 # head dim 128; KV pages of 16 tokens
 YI = dict(H=32, KVH=4, Dh=128, page=16)
+# the attention rows' times before the kernels' Hopper redesign (ms, CUDA
+# events, NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), where PERF.md
+# recorded one, by (shape, input dtype)
+EARLIER_MS = {
+    ("B=8 ctx=2048", "bfloat16"): 0.391, ("B=32 ctx=4096", "bfloat16"): 0.783,
+    ("B=8 ctx=2048", "float32"): 0.473, ("yi-6b prefill S=2048", "bfloat16"): 1.624,
+    ("gemma3-1b local S=2048 w=512", "bfloat16"): 0.217,
+    ("whisper-small encoder S=1500", "bfloat16"): 0.444,
+    ("yi-6b prefill S=512", "float32"): 0.176,
+}
 # engine vs the NumPy batch engine, whose estimator epilogue is float64
 HOST_TOL = dict(rtol=2e-3, atol=2e-3)
 # every kernel: its source, the TPU kernel it replaces, its launch counter,
@@ -121,6 +132,12 @@ KERNELS = {
 KV_CUT_PAGES, KV_LAYER_PAGES = 1024, 60_000
 KV_REQUESTS = 48
 KV_CHECK_EVERY = 16  # decode steps between checks against the plain version
+# the seeded traffic's bookkeeping on each pool (pinned on the CPU by
+# tests/test_torch_kv_serving.py): steps, evictions (= swap-ins), table
+# repasses; and the attention ms per step (mean, CUDA events, H100 80GB
+# HBM3, 700 W) before the kernel's redesign, from PERF.md
+KV_EXPECT = {KV_CUT_PAGES: (321, 34_417, 25), KV_LAYER_PAGES: (319, 0, 0)}
+KV_EARLIER_MS = {KV_CUT_PAGES: 0.480, KV_LAYER_PAGES: 0.441}
 
 
 def reset_launches() -> None:
@@ -142,6 +159,30 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
+
+
+def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
+    """Tensor-core instructions (Hopper's HGMMA, mma.sync's HMMA) in each
+    attention kernel of the built library, from cuobjdump -sass beside
+    nvcc; empty when cuobjdump is missing."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            name = next((k for k in ("flash_attention_wgmma_kernel", "flash_attention_f32_kernel",
+                                     "paged_attention_mma_kernel", "paged_attention_f32_kernel")
+                         if k in fn), None)
+            if name is not None:
+                counts.setdefault(name, {"HGMMA": 0, "HMMA": 0})
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                counts[name][op] += f" {op}." in line
+    return counts
 
 
 def time_ms(fn, reps: int = 30, warmup: int = 5, flush: torch.Tensor | None = None) -> float:
@@ -339,30 +380,34 @@ def check_paged(dev, gen, B, ctx, dtype, flush) -> dict:
         return pa_ref.paged_attention_ref(q, kp, vp, bt, cl)
 
     # the yardstick: one SDPA call on K/V gathered dense beforehand, with a
-    # boolean mask of the context lengths
+    # boolean mask of the context lengths, on the memory-efficient backend;
+    # the query group of each KV head is its G rows, so no GQA is asked for
     S = max_pages * page
+    G = H // KVH
     kd = kp[bt.long()].reshape(B, S, KVH, Dh).transpose(1, 2).contiguous()
     vd = vp[bt.long()].reshape(B, S, KVH, Dh).transpose(1, 2).contiguous()
     mask = (torch.arange(S, device=dev)[None, :] < cl[:, None])[:, None, None, :]
+    qg = q.reshape(B, KVH, G, Dh)
 
     def library():
-        return sdpa(q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return sdpa(qg, kd, vd, attn_mask=mask)
 
     err, lib_err = _check("paged_attention", f"B={B} ctx={ctx}", dtype, kernel(), plain(),
-                          library()[:, :, 0])
+                          library().reshape(B, H, Dh))
     tokens = int(cl.sum())
     es = q.element_size()
     pages_read = int(((cl + page - 1) // page).sum())
     nbytes = 2 * q.numel() * es + 2 * tokens * KVH * Dh * es + pages_read * 4 + B * 4
     b_ms, b_by = bound_ms(nbytes, 4 * H * Dh * tokens, PEAK_FLOP_PER_S[dtype])
-    return dict(
+    return _rates(dict(
         kernel="paged_attention", shape=f"B={B} ctx={ctx}", B=B, ctx=ctx,
         dtype=str(dtype)[6:], max_abs_err=err, library_err=lib_err,
         ms=time_ms(kernel, flush=flush), plain_ms=time_ms(plain, flush=flush),
-        library_ms=time_ms(library, flush=flush),
-        device_us=device_us(kernel, flush=flush, key="paged_attention"),
+        library_ms=time_ms(library, flush=flush), library_backend="efficient",
+        device_us=device_us(kernel, flush=flush, key="paged_"),  # split + combine
         bound_ms=b_ms, bound_by=b_by, nbytes=nbytes,
-    )
+    ))
 
 
 def check_flash(dev, gen, name, B, H, KVH, S, Dh, causal, window, dtype) -> dict:
@@ -377,31 +422,55 @@ def check_flash(dev, gen, name, B, H, KVH, S, Dh, causal, window, dtype) -> dict
     def plain():
         return fa_ref.attention_ref(q, k, v, causal=causal, window=window)
 
-    # the yardstick: SDPA, whose is_causal aligns top-left, so a window gets
-    # an explicit boolean mask (Sq == Skv here)
+    # the yardstick: SDPA on a pinned backend.  The flash backend (bf16, no
+    # explicit mask; its is_causal aligns top-left, and Sq == Skv here) takes
+    # GQA itself; elsewhere the memory-efficient backend with an explicit
+    # boolean mask, each KV head's query group folded into G * S rows so that
+    # no GQA is asked for
     pos = torch.arange(S, device=dev)
     mask = torch.ones(S, S, dtype=torch.bool, device=dev)
     if causal:
         mask &= pos[None, :] <= pos[:, None]
     if window is not None:
         mask &= pos[None, :] > pos[:, None] - window
+    G = H // KVH
+    flash = dtype == torch.bfloat16 and window is None
+    qg, gmask = q.reshape(B, KVH, G * S, Dh), mask.repeat(G, 1)
 
     def library():
-        if window is None:
-            return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
-        return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+        if flash:
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return sdpa(qg, k, v, attn_mask=gmask).reshape(B, H, S, Dh)
 
     err, lib_err = _check("flash_attention", name, dtype, kernel(), plain(), library())
     pairs = int(mask.sum())
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     b_ms, b_by = bound_ms(nbytes, 4 * B * H * Dh * pairs, PEAK_FLOP_PER_S[dtype])
-    return dict(
+    return _rates(dict(
         kernel="flash_attention", shape=name, B=B, H=H, KVH=KVH, S=S, Dh=Dh, causal=causal,
         window=window, dtype=str(dtype)[6:], max_abs_err=err, library_err=lib_err,
         ms=time_ms(kernel), plain_ms=time_ms(plain), library_ms=time_ms(library),
+        library_backend="flash" if flash else "efficient",
         device_us=device_us(kernel, key="flash_attention"),
-        bound_ms=b_ms, bound_by=b_by, flops=4 * B * H * Dh * pairs,
-    )
+        bound_ms=b_ms, bound_by=b_by, flops=4 * B * H * Dh * pairs, nbytes=nbytes,
+    ))
+
+
+def _rates(r: dict) -> dict:
+    """Add the achieved rate of the work the bound counts (TFLOP/s when
+    operations bound it, GB/s when bytes do), the bound's share of the
+    measured time (CUDA events; and of the profiler's device time), and the
+    row's time before the kernels' redesign where PERF.md recorded one."""
+    work = r["flops"] / 1e12 if r["bound_by"] == "operations" else r["nbytes"] / 1e9
+    r["rate"] = work / (r["ms"] / 1e3)
+    r["rate_unit"] = "TFLOP/s" if r["bound_by"] == "operations" else "GB/s"
+    r["bound_share"] = r["bound_ms"] / r["ms"]
+    dev = r["device_us"]
+    r["device_bound_share"] = None if dev is None else r["bound_ms"] / (dev / 1e3)
+    r["earlier_ms"] = EARLIER_MS.get((r["shape"], r["dtype"]))
+    return r
 
 
 def phase_attention(dev, card: str) -> tuple[list[dict], dict[str, int]]:
@@ -427,12 +496,16 @@ def phase_attention(dev, card: str) -> tuple[list[dict], dict[str, int]]:
     launches = read_launches()
     print(f"attention kernels on {card}:")
     print(f"{'kernel':15} {'shape':30} {'dtype':8} {'max_err':>9} {'lib_err':>9} {'ms':>9} "
-          f"{'plain_ms':>9} {'lib_ms':>9} {'bound_ms':>9} {'dev_us':>9} by")
+          f"{'prev_ms':>8} {'plain_ms':>9} {'lib_ms':>9} {'sdpa':9} {'bound_ms':>9} "
+          f"{'dev_us':>9} {'rate':>8} {'unit':7} {'share':>6} {'dev_sh':>6} by")
     for r in rows:
+        earlier = "—" if r["earlier_ms"] is None else f"{r['earlier_ms']:.3f}"
+        dsh = "n/m" if r["device_bound_share"] is None else f"{r['device_bound_share']:.3f}"
         print(f"{r['kernel']:15} {r['shape']:30} {r['dtype']:8} {r['max_abs_err']:9.2e} "
-              f"{r['library_err']:9.2e} {r['ms']:9.5f} {r['plain_ms']:9.5f} "
-              f"{r['library_ms']:9.5f} {r['bound_ms']:9.6f} {_us(r['device_us']):>9} "
-              f"{r['bound_by']}")
+              f"{r['library_err']:9.2e} {r['ms']:9.5f} {earlier:>8} {r['plain_ms']:9.5f} "
+              f"{r['library_ms']:9.5f} {r['library_backend']:9} {r['bound_ms']:9.6f} "
+              f"{_us(r['device_us']):>9} {r['rate']:8.1f} {r['rate_unit']:7} "
+              f"{r['bound_share']:6.3f} {dsh:>6} {r['bound_by']}")
     return rows, launches
 
 
@@ -644,7 +717,8 @@ def phase_kv_serve(dev, card: str, n_pages: int, thrash: bool) -> dict:
                requests=KV_REQUESTS, steps=steps, decode_tokens=tokens,
                prefill_tokens=prefill_tokens, evictions=pool.evictions, swap_ins=pool.swap_ins,
                hit_rate=pool.hit_rate(), attention_ms_per_step_median=float(np.median(attn_ms)),
-               attention_ms_per_step_mean=float(np.mean(attn_ms)), wall_s=wall,
+               attention_ms_per_step_mean=float(np.mean(attn_ms)),
+               attention_ms_per_step_mean_before=KV_EARLIER_MS[n_pages], wall_s=wall,
                host_s=host_s, checks=checks, max_abs_err=max_err,
                table_repasses=pool.table_repasses, launches=launches)
     print("kv serve:", json.dumps(out))
@@ -658,6 +732,10 @@ def phase_kv_serve(dev, card: str, n_pages: int, thrash: bool) -> dict:
         (pool.evictions == pool.swap_ins == 0)
     require(swapped, f"kv serve on {n_pages} pages: {pool.evictions} evictions, "
             f"{pool.swap_ins} swap-ins")
+    counts = (steps, pool.evictions, pool.table_repasses)
+    require(counts == KV_EXPECT[n_pages] and pool.swap_ins == pool.evictions,
+            f"kv serve on {n_pages} pages: steps, evictions, repasses {counts}, "
+            f"swap-ins {pool.swap_ins}; the seeded traffic gives {KV_EXPECT[n_pages]}")
     return out
 
 
@@ -685,6 +763,11 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  ptxas:", line.strip())
+    sass = sass_counts(_build.BUILD_DIR / _build.LIB_NAME)
+    print("sass: tensor-core instructions per attention kernel family:", json.dumps(sass))
+    require(not sass or (sass["flash_attention_wgmma_kernel"]["HGMMA"] > 0 and
+                         sass["paged_attention_mma_kernel"]["HMMA"] > 0),
+            f"the bf16 attention kernels must use the tensor cores: {sass}")
 
     phase_s = {}
     t0 = time.perf_counter()
@@ -723,7 +806,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=card, kernels=report, shapes=rows, attention=attn_rows, tables=tables,
-             search=search, kv_serve=kv, phase_s=phase_s), indent=1))
+             search=search, kv_serve=kv, phase_s=phase_s, sass=sass), indent=1))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,70 +13,373 @@
 // key) pair, e.g. 34.4 GFLOP for Yi-6B's causal prefill at S = 2048 against
 // a few MB of q, k, v and out, far above both ridges (20 flops a byte in
 // fp32, 295 in bf16).  The bound is the tensor-core peak for bf16 inputs
-// (35 us there) and the fp32 peak for fp32 inputs.  This first kernel does
-// its products with fp32 FMA on the CUDA cores, so it can reach at most the
-// 67 TFLOP/s fp32 peak, about 1/15 of the bf16 bound; wgmma is later work.
+// (35 us there) and the fp32 peak for fp32 inputs.
 //
-// Design.  One block per (query tile of 64 rows, head, sequence), with a
-// loop over 64-key tiles in place of the TPU's sequential grid axis.  Key
-// tiles that the causal mask or the window rule out for every row of the
-// query tile are never loaded; ragged edges (rows past Sq, keys past Skv)
-// are masked here, so nothing is padded in device memory.  Q, K and V tiles
-// are converted to fp32 in shared memory (rows padded by one float so that
-// the 16 threads reading 16 different rows hit 16 banks); 16 x 16 threads
-// each hold a 4 x 4 block of scores (rows ty + 16i, keys tx + 16j) and the
-// same 4 rows of the output accumulator, so the row max and sum are 16-lane
-// shuffles and the rescale by alpha needs no shared memory.  IEEE fp32
-// throughout.  A masked key gets probability 0, so a row that sees no key
-// gives 0 / max(0, 1e-30) = 0.  Shared memory is 115 KB at Dh = 128 and
-// 214 KB at Dh = 256, above the 48 KB static limit, so the launch raises
-// the dynamic limit first and returns the error if the card refuses it.
+// bf16 inputs: tensor cores, fed by TMA.  One block per (128-row query
+// tile, head, sequence), heaviest tiles first under causal masking: a
+// producer warp keeps K and V tiles of BK keys (128; 64 at Dh = 256) in a
+// ring of 2-3 stages of shared memory, loaded by TMA (cp.async.bulk.tensor,
+// swizzled, zero-filled past Sq and Skv) and completing on mbarriers; two
+// consumer warpgroups of 64 query rows each, holding the registers that
+// setmaxnreg takes from the producer, compute S = Q K^T with wgmma from
+// shared memory, the online softmax in fp32 registers in wgmma's
+// accumulator layout (a row lives in the 4 lanes of a quad: two shuffles
+// for its max, its sum kept per lane until the end), and O += P V with
+// wgmma, P from registers and V read MN-major from shared memory.  Each
+// step issues S of one key tile with P V of the one before as one group,
+// and the two warpgroups take turns to issue (named barriers), so that one
+// runs its softmax while the tensor cores work for the other.  P is
+// split into hi = bf16(p) and lo = bf16(p - hi), each multiplied with V into
+// the same fp32 O: a single bf16 P errs by up to 2^-9 of each p * v term,
+// more than one bf16 ulp of the output where terms cancel, and the kernel is
+// held to one ulp of its plain version.  That costs 6 * Dh flops a pair
+// instead of 4 * Dh.  Key tiles that the masks rule out for the whole query
+// tile are never loaded; masks are evaluated only on tiles that cross the
+// causal diagonal, the window edge or Skv.  A masked key gets probability 0
+// (exp2(-inf - m) with a finite m that starts at -1e30), so a row that sees
+// no key gives 0 / max(0, 1e-30) = 0.
+//
+// fp32 inputs keep a CUDA-core kernel: the fp32 bar (1e-4) rules out TF32.
+// One block per (64-row query tile, head, sequence), a loop over 64-key
+// tiles converted to fp32 in shared memory (rows padded by one float), 16 x
+// 16 threads each holding a 4 x 4 block of scores and the same 4 rows of the
+// output, IEEE fp32 throughout.
+//
+// Shared memory above 48 KB (56-225 KB bf16, 115-214 KB fp32): the launch
+// raises the dynamic limit first and returns the error if the card refuses.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;  // query rows per block
-constexpr int kBK = 64;  // keys per tile
-constexpr int kThreads = 256;  // 16 x 16
 constexpr float kNegInf = -1e30f;
-
-// rows [r0, r0 + 64) of a (rows, DH) matrix into fp32 shared memory with
-// row stride `stride`; rows at or past `rows` become zeros.
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, float* dst, int stride,
-                                          int r0, int rows) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = DH / VEC;
-  for (int idx = threadIdx.x; idx < 64 * PER_ROW; idx += kThreads) {
-    const int r = idx / PER_ROW, d0 = (idx - r * PER_ROW) * VEC;
-    float f[VEC];
-    if (r0 + r < rows) {
-      unpack(*reinterpret_cast<const uint4*>(src + static_cast<int64_t>(r0 + r) * DH + d0), f,
-             T());
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) f[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) dst[r * stride + d0 + e] = f[e];
-  }
-}
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Shape {
   int H, KVH, Sq, Skv, causal, has_window, window;
   float scale;
 };
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, Shape s) {
+// The keys [k_lo, k_hi) that some real row of query tile [q0, q0 + bq) may see.
+__device__ __forceinline__ void key_range(const Shape& s, int q0, int bq, int& k_lo, int& k_hi) {
+  const int offset = s.Skv - s.Sq;  // key position of query row 0
+  const int last_row = min(q0 + bq, s.Sq) - 1;
+  k_lo = 0;
+  k_hi = s.Skv;
+  if (s.causal) k_hi = min(k_hi, last_row + offset + 1);
+  if (s.has_window) k_lo = max(k_lo, q0 + offset - s.window + 1);
+}
+
+// ------------------------------------------------------------ bf16: wgmma + TMA
+
+template <int DH>
+struct Tile {
+  static constexpr int BQ = 128;                         // query rows per block
+  static constexpr int BK = DH == 256 ? 64 : 128;        // keys per tile
+  static constexpr int STAGES = DH == 256 ? 2 : 3;       // K/V ring
+  static constexpr int DA = DH == 32 ? 32 : 64;          // columns per swizzle atom
+  static constexpr int ROWB = DA * 2;                    // bytes of an atom's row
+  static constexpr uint32_t SWZ = DH == 32 ? 2 : 1;      // descriptor mode: 64 B / 128 B
+  static constexpr int NATOM = DH / DA;
+  static constexpr int Q_BYTES = BQ * DH * 2;
+  static constexpr int KV_BYTES = BK * DH * 2;
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES;  // + barriers, + alignment
+  static constexpr int THREADS = 384;                    // producer + 2 consumer warpgroups
+};
+
+template <int DH>
+__global__ void __launch_bounds__(384, 1) flash_attention_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, Shape s,
+    int n_qtiles) {
+  using C = Tile<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled tiles need 1024-byte alignment; each tile is [atom][row][DA]
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* qs = base;
+  uint8_t* ks = qs + C::Q_BYTES;
+  uint8_t* vs = ks + C::STAGES * C::KV_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + C::STAGES * C::KV_BYTES);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + C::STAGES;
+  uint64_t* empty = v_full + C::STAGES;
+
+  const int tile = s.causal ? n_qtiles - 1 - static_cast<int>(blockIdx.x) : blockIdx.x;
+  const int q0 = tile * C::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (s.H / s.KVH);
+  int k_lo, k_hi;
+  key_range(s, q0, C::BQ, k_lo, k_hi);
+  const int kt0 = k_lo / C::BK;
+  const int n_tiles = k_lo < k_hi ? (k_hi + C::BK - 1) / C::BK - kt0 : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < C::STAGES; ++i) {
+      mbar_init(k_full + i, 1);
+      mbar_init(v_full + i, 1);
+      mbar_init(empty + i, 8);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer: one thread issues every copy
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+#pragma unroll
+      for (int j = 0; j < C::NATOM; ++j)
+        tma_load_3d(qs + j * C::BQ * C::ROWB, &tq, q_full, j * C::DA, q0, b * s.H + h);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % C::STAGES;
+        if (i >= C::STAGES) mbar_wait(empty + st, (i / C::STAGES - 1) & 1);
+        const int k0 = (kt0 + i) * C::BK, row = b * s.KVH + kvh;
+        mbar_expect_tx(k_full + st, C::KV_BYTES);
+#pragma unroll
+        for (int j = 0; j < C::NATOM; ++j)
+          tma_load_3d(ks + st * C::KV_BYTES + j * C::BK * C::ROWB, &tk, k_full + st, j * C::DA,
+                      k0, row);
+        mbar_expect_tx(v_full + st, C::KV_BYTES);
+#pragma unroll
+        for (int j = 0; j < C::NATOM; ++j)
+          tma_load_3d(vs + st * C::KV_BYTES + j * C::BK * C::ROWB, &tv, v_full + st, j * C::DA,
+                      k0, row);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns query rows q0 + 64 cw .. + 63
+  setmaxnreg_inc<240>();
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int quad = lane % 4;
+  const int offset = s.Skv - s.Sq;
+  const int row0 = q0 + 64 * cw + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+  const int wg_first = q0 + 64 * cw, wg_last = wg_first + 63;
+  const float scale2 = s.scale * kLog2e;
+
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+
+  // Step i issues S_i = Q K_i^T and O += P_{i-1} V_{i-1} as one group, then
+  // runs the softmax of S_i.  The two warpgroups take turns to issue (named
+  // barriers 1 and 2), so that one's softmax overlaps the other's products.
+  float sc[C::BK / 2];
+  uint32_t ph[C::BK / 4], pl[C::BK / 4];  // P_{i-1}: bf16 pairs, A fragments of PV
+  if (n_tiles > 0) mbar_wait(q_full, 0);
+  if (cw == 1) named_bar_arrive(1, 256);  // warpgroup 0 issues first
+  for (int i = 0; i <= n_tiles; ++i) {
+    const bool has_s = i < n_tiles, has_pv = i > 0;
+    const int st = i % C::STAGES, pst = (i + C::STAGES - 1) % C::STAGES;
+    if (has_s) mbar_wait(k_full + st, (i / C::STAGES) & 1);
+    if (has_pv) mbar_wait(v_full + pst, ((i - 1) / C::STAGES) & 1);
+    named_bar_sync(1 + cw, 256);
+    reg_fence(o);
+    reg_fence(ph);
+    reg_fence(pl);
+    wgmma_fence();
+    if (has_s) {
+      const uint8_t* kt = ks + st * C::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const int j = kk * 16 / C::DA, off = (kk * 16 % C::DA) * 2;
+        const uint64_t da = wgmma_desc(qs + j * C::BQ * C::ROWB + cw * 64 * C::ROWB + off, 16,
+                                       8 * C::ROWB, C::SWZ);
+        const uint64_t db = wgmma_desc(kt + j * C::BK * C::ROWB + off, 16, 8 * C::ROWB, C::SWZ);
+        Wgmma<C::BK>::ss(sc, da, db, kk > 0);
+      }
+    }
+    if (has_pv) {  // the A fragment of keys 16kk.. is ph[4kk .. 4kk + 3]
+      const uint8_t* vt = vs + pst * C::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < C::BK / 16; ++kk) {
+        const uint64_t db =
+            wgmma_desc(vt + kk * 16 * C::ROWB, C::BK * C::ROWB, 8 * C::ROWB, C::SWZ);
+        const uint32_t a_hi[4] = {ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3]};
+        const uint32_t a_lo[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3]};
+        Wgmma<DH>::rs(o, a_hi, db);
+        Wgmma<DH>::rs(o, a_lo, db);
+      }
+    }
+    wgmma_commit();
+    named_bar_arrive(2 - cw, 256);
+    wgmma_wait<0>();
+    reg_fence(sc);
+    reg_fence(o);
+    if (has_pv && lane == 0) mbar_arrive(empty + pst);  // K and V of step i - 1 are read
+    if (!has_s) continue;
+
+    // online softmax of S_i in the log2 domain (p = 2^(s scale log2(e) - m));
+    // sc[4j + 2r + c] is row row0 + 8r, key k0 + 8j + 2 quad + c
+    const int k0 = (kt0 + i) * C::BK;
+    const bool need_mask = k0 + C::BK > s.Skv ||
+                           (s.causal && k0 + C::BK - 1 > wg_first + offset) ||
+                           (s.has_window && k0 <= wg_last + offset - s.window);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = row0 + 8 * r + offset;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < C::BK / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float x = sc[4 * j + 2 * r + c];
+          if (need_mask) {
+            const int kp = k0 + 8 * j + 2 * quad + c;
+            const bool ok = kp < s.Skv && (!s.causal || kp <= qp) &&
+                            (!s.has_window || kp > qp - s.window);
+            x = ok ? x : -INFINITY;
+            sc[4 * j + 2 * r + c] = x;
+          }
+          mx = fmaxf(mx, x);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // the scale is positive, so the max of scaled scores is the scaled max
+      const float m_new = fmaxf(m_r[r], mx * scale2);
+      const float alpha = fast_exp2(m_r[r] - m_new);
+      m_r[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < C::BK / 8; ++j) {
+        const float p0 = fast_exp2(fmaf(sc[4 * j + 2 * r], scale2, -m_new));
+        const float p1 = fast_exp2(fmaf(sc[4 * j + 2 * r + 1], scale2, -m_new));
+        sum += p0 + p1;
+        split_bf16(p0, p1, ph[2 * j + r], pl[2 * j + r]);
+      }
+      l_r[r] = l_r[r] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        o[4 * j + 2 * r] *= alpha;
+        o[4 * j + 2 * r + 1] *= alpha;
+      }
+    }
+  }
+  if (cw == 0) named_bar_sync(1, 256);  // warpgroup 1's last turn
+
+  __nv_bfloat16* ob = out + (static_cast<int64_t>(b) * s.H + h) * s.Sq * DH;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    const int row = row0 + 8 * r;
+    if (row < s.Sq) {
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<int64_t>(row) * DH + 8 * j +
+                                           2 * quad) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
+// library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (heads, rows, DH) bf16 tensor as boxes of (1, box_rows, DA), swizzled
+// as the wgmma descriptors read them; rows past `rows` read as zeros.
+template <int DH>
+bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int heads, int box_rows) {
+  using C = Tile<DH>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {DH, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {DH * 2, static_cast<cuuint64_t>(rows) * DH * 2};
+  const cuuint32_t box[3] = {C::DA, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                C::SWZ == 1 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
+                        const Shape& s, cudaStream_t stream) {
+  using C = Tile<DH>;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map<DH>(&tq, q, s.Sq, B * s.H, C::BQ) ||
+      !tensor_map<DH>(&tk, k, s.Skv, B * s.KVH, C::BK) ||
+      !tensor_map<DH>(&tv, v, s.Skv, B * s.KVH, C::BK))
+    return cudaErrorInvalidValue;
+  const int smem = C::SMEM + (1 + 3 * C::STAGES) * 8 + 1024;
+  auto kernel = flash_attention_wgmma_kernel<DH>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_qtiles = (s.Sq + C::BQ - 1) / C::BQ;
+  const dim3 grid(n_qtiles, s.H, B);
+  kernel<<<grid, C::THREADS, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out), s,
+                                             n_qtiles);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ fp32: CUDA cores
+
+constexpr int kBQ = 64;        // query rows per block
+constexpr int kBK = 64;        // keys per tile
+constexpr int kThreads = 256;  // 16 x 16
+
+// rows [r0, r0 + 64) of a (rows, DH) matrix into shared memory with row
+// stride `stride`; rows at or past `rows` become zeros.
+template <int DH>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src, float* dst, int stride,
+                                          int r0, int rows) {
+  constexpr int PER_ROW = DH / 4;
+  for (int idx = threadIdx.x; idx < 64 * PER_ROW; idx += kThreads) {
+    const int r = idx / PER_ROW, d0 = (idx - r * PER_ROW) * 4;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < rows)
+      f = *reinterpret_cast<const float4*>(src + static_cast<int64_t>(r0 + r) * DH + d0);
+    float* d = dst + r * stride + d0;
+    d[0] = f.x; d[1] = f.y; d[2] = f.z; d[3] = f.w;
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, Shape s) {
   constexpr int NJ = DH / 16;     // output columns per thread
   constexpr int QS = DH + 1;      // padded row stride of Q and K
   constexpr int PS = kBK + 1;     // padded row stride of P
@@ -90,17 +393,14 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   const int kvh = h / (s.H / s.KVH);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int offset = s.Skv - s.Sq;  // key position of query row 0
-  const T* qb = q + (static_cast<int64_t>(b) * s.H + h) * s.Sq * DH;
-  const T* kb = k + (static_cast<int64_t>(b) * s.KVH + kvh) * s.Skv * DH;
-  const T* vb = v + (static_cast<int64_t>(b) * s.KVH + kvh) * s.Skv * DH;
+  const float* qb = q + (static_cast<int64_t>(b) * s.H + h) * s.Sq * DH;
+  const float* kb = k + (static_cast<int64_t>(b) * s.KVH + kvh) * s.Skv * DH;
+  const float* vb = v + (static_cast<int64_t>(b) * s.KVH + kvh) * s.Skv * DH;
 
-  load_tile<T, DH>(qb, qs, QS, q0, s.Sq);
+  load_tile<DH>(qb, qs, QS, q0, s.Sq);
 
-  // the keys some real row of this tile may see
-  const int last_row = min(q0 + kBQ, s.Sq) - 1;
-  int k_lo = 0, k_hi = s.Skv;
-  if (s.causal) k_hi = min(k_hi, last_row + offset + 1);
-  if (s.has_window) k_lo = max(k_lo, q0 + offset - s.window + 1);
+  int k_lo, k_hi;
+  key_range(s, q0, kBQ, k_lo, k_hi);
 
   float m_r[4], l_r[4], acc[4][NJ];
 #pragma unroll
@@ -114,8 +414,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   for (int kt = k_lo / kBK; k_lo < k_hi && kt * kBK < k_hi; ++kt) {
     const int kbase = kt * kBK;
     __syncthreads();  // the previous tile's reads of ks, vs and ps are done
-    load_tile<T, DH>(kb, ks, QS, kbase, s.Skv);
-    load_tile<T, DH>(vb, vs, DH, kbase, s.Skv);
+    load_tile<DH>(kb, ks, QS, kbase, s.Skv);
+    load_tile<DH>(vb, vs, DH, kbase, s.Skv);
     __syncthreads();
 
     float sc[4][4];
@@ -183,60 +483,59 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     }
   }
 
-  T* ob = out + (static_cast<int64_t>(b) * s.H + h) * s.Sq * DH;
+  float* ob = out + (static_cast<int64_t>(b) * s.H + h) * s.Sq * DH;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row < s.Sq) {
       const float l = fmaxf(l_r[i], 1e-30f);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        from_f32(acc[i][j] / l, ob + static_cast<int64_t>(row) * DH + tx + 16 * j);
+      for (int j = 0; j < NJ; ++j) ob[static_cast<int64_t>(row) * DH + tx + 16 * j] = acc[i][j] / l;
     }
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const T* q, const T* k, const T* v, T* out, int B, const Shape& s,
-                   cudaStream_t stream) {
+template <int DH>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+                       const Shape& s, cudaStream_t stream) {
   const size_t smem =
       (static_cast<size_t>(kBQ + kBK) * (DH + 1) + static_cast<size_t>(kBK) * DH +
        static_cast<size_t>(kBQ) * (kBK + 1)) * sizeof(float);
-  auto kernel = flash_attention_kernel<T, DH>;
+  auto kernel = flash_attention_f32_kernel<DH>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((s.Sq + kBQ - 1) / kBQ, s.H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, s);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q),
+                                           static_cast<const float*>(k),
+                                           static_cast<const float*>(v),
+                                           static_cast<float*>(out), s);
   return cudaGetLastError();
 }
 
-template <typename T>
-int entry(const void* q, const void* k, const void* v, void* out, int B, int H, int KVH, int Sq,
-          int Skv, int Dh, int causal, int has_window, int window, float scale, int device,
-          void* stream) {
+using Launch = cudaError_t (*)(const void*, const void*, const void*, void*, int, const Shape&,
+                               cudaStream_t);
+
+int entry(const Launch (&by_dh)[4], const void* q, const void* k, const void* v, void* out, int B,
+          int H, int KVH, int Sq, int Skv, int Dh, int causal, int has_window, int window,
+          float scale, int device, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v);
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || Sq <= 0 || Skv <= 0 || B > 65535 ||
       H > 65535 || align % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int which = Dh == 32 ? 0 : Dh == 64 ? 1 : Dh == 128 ? 2 : Dh == 256 ? 3 : -1;
+  if (which < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Shape s{H, KVH, Sq, Skv, causal, has_window, window, scale};
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(out);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (Dh) {
-    case 32: err = launch<T, 32>(qt, kt, vt, ot, B, s, st); break;
-    case 64: err = launch<T, 64>(qt, kt, vt, ot, B, s, st); break;
-    case 128: err = launch<T, 128>(qt, kt, vt, ot, B, s, st); break;
-    case 256: err = launch<T, 256>(qt, kt, vt, ot, B, s, st); break;
-    default: err = cudaErrorInvalidValue;
-  }
+  err = by_dh[which](q, k, v, out, B, s, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
+
+constexpr Launch kF32[4] = {launch_f32<32>, launch_f32<64>, launch_f32<128>, launch_f32<256>};
+constexpr Launch kBf16[4] = {launch_bf16<32>, launch_bf16<64>, launch_bf16<128>,
+                             launch_bf16<256>};
 
 }  // namespace
 
@@ -249,14 +548,14 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, 
                                    int H, int KVH, int Sq, int Skv, int Dh, int causal,
                                    int has_window, int window, float scale, int device,
                                    void* stream) {
-  return entry<float>(q, k, v, out, B, H, KVH, Sq, Skv, Dh, causal, has_window, window, scale,
-                      device, stream);
+  return entry(kF32, q, k, v, out, B, H, KVH, Sq, Skv, Dh, causal, has_window, window, scale,
+               device, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                     int B, int H, int KVH, int Sq, int Skv, int Dh, int causal,
                                     int has_window, int window, float scale, int device,
                                     void* stream) {
-  return entry<__nv_bfloat16>(q, k, v, out, B, H, KVH, Sq, Skv, Dh, causal, has_window, window,
-                              scale, device, stream);
+  return entry(kBf16, q, k, v, out, B, H, KVH, Sq, Skv, Dh, causal, has_window, window, scale,
+               device, stream);
 }

@@ -33,9 +33,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
-# q, k_pages, v_pages, block_tables, context_lens, out,
-# B, H, KVH, Dh, page, max_pages, n_pages, scale, device, stream
-_PAGED = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64, _F, _I, _P)
+# q, k_pages, v_pages, block_tables, context_lens, out, part, B, H, KVH, Dh,
+# page, max_pages, n_pages, split_tokens, n_split, scale, device, stream
+_PAGED = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64, _I, _I, _F, _I, _P)
 # q, k, v, out, B, H, KVH, Sq, Skv, Dh, causal, has_window, window, scale, device, stream
 _FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P)
 # C entry -> argtypes; every entry returns its launch's cudaError_t as int
@@ -139,6 +139,15 @@ def load() -> ctypes.CDLL:
 
 def loaded() -> bool:
     return _lib is not None
+
+
+def stream(device) -> int:
+    """The raw CUDA stream PyTorch launches on for ``device`` (a CUDA
+    ``torch.device``), as an int for a C entry, read without building a
+    ``torch.cuda.Stream`` object on every call."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(name: str, err: int) -> None:

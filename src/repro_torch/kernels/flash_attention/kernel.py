@@ -1,12 +1,16 @@
 """Launch wrapper for the CUDA ``flash_attention`` kernel
 (``csrc/flash_attention.cu``).
 
-The kernel replaces the Pallas TPU kernel ``_flash_kernel``: one block per
-(query tile, head, sequence), a loop over the key tiles that the causal mask
-and the window leave visible, ragged edges masked in the kernel (nothing is
-padded), an IEEE fp32 online softmax.  The wrapper validates its arguments,
-allocates the output and launches on the current stream without
-synchronising.
+The kernel replaces the Pallas TPU kernel ``_flash_kernel``.  bf16 inputs
+run on the tensor cores: one block per (128-row query tile, head,
+sequence), K/V tiles brought in by TMA by a producer warp, two consumer
+warpgroups doing Q K^T and P V with wgmma and the online softmax in fp32
+registers, P split into two bf16 terms so that the result stays within one
+bf16 ulp of the fp32 plain version.  fp32 inputs run an IEEE fp32 CUDA-core
+kernel.  Both loop over only the key tiles that the causal mask and the
+window leave visible and mask ragged edges in the kernel (nothing is
+padded).  The wrapper validates its arguments, allocates the output and
+launches on the current stream without synchronising.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ def flash_attention_cuda(
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KVH, Sq, Skv, Dh,
         int(causal), int(window is not None), w, float(scale), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
+        _build.stream(dev),
     )
     _build.check("flash_attention", err)
     launches += 1

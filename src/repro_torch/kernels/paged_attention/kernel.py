@@ -1,25 +1,53 @@
 """Launch wrapper for the CUDA ``paged_attention`` kernel
 (``csrc/paged_attention.cu``).
 
-The kernel replaces the Pallas TPU kernel ``_paged_kernel``: one block per
-(sequence, KV head) holding that head's whole query group, a loop over only
-the pages the sequence has, page ids read from the block table by the block
-itself, an IEEE fp32 online softmax.  The wrapper validates its arguments,
-allocates the output and launches on the current stream without
+The kernel replaces the Pallas TPU kernel ``_paged_kernel``: the context
+is split into runs of ``split_tokens`` tokens (``split_tokens`` below), one
+block per (KV head, sequence, run) holding that head's whole query group,
+page ids read from the block table by the block itself, K/V chunks
+pipelined through shared memory, bf16 pages multiplied on the tensor cores
+(P split into two bf16 terms), fp32 pages in IEEE fp32 on the CUDA cores,
+an fp32 online softmax; with more than one run, a second kernel of the same
+call combines the runs' partial states.  The wrapper validates its arguments, allocates the output and the
+scratch of partial states and launches on the current stream without
 synchronising.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import _build
 
-launches = 0  # kernel launches since the caller last set it to 0
+launches = 0  # wrapper calls that launched, since the caller last set it to 0
 
-MAX_HEAD_DIM = 256
-MAX_GROUP = 32          # query heads per KV head
-MAX_GROUP_ELEMS = 4096  # group * head_dim: the accumulator held in registers
+HEAD_DIMS = (32, 64, 128, 256)  # compile-time head widths of the kernel
+MAX_GROUP_ELEMS = 4096  # group * head_dim: the accumulators held in registers
+SMS = 132         # streaming multiprocessors of an H100 SXM
+WAVES = 4         # blocks a sequence's runs aim for, in units of SMS (2 bf16 blocks fit an SM)
+CHUNK = 64        # tokens a block stages in shared memory at a time (bf16)
+MIN_SPLIT = 256   # no run shorter than this: each run pays a partial state
+
+
+def split_tokens(B: int, KVH: int, max_tokens: int, page: int) -> int:
+    """Tokens of each run of the context split, for B sequences of at most
+    ``max_tokens`` tokens (``max_pages * page``) and KVH KV heads.  The rule:
+    ask for ``ceil(WAVES * SMS / (B * KVH))`` runs a sequence, so that the
+    grid holds at least four waves of blocks on the card's SMs (two resident
+    blocks an SM, twice over); make each run
+    ``max_tokens / runs`` tokens rounded down to a multiple of the page and
+    of ``CHUNK`` (so that there are at least that many runs), but never
+    shorter than ``MIN_SPLIT`` rounded up to such a multiple (where the
+    contexts do not allow the runs).  The runs ``[i * split, (i + 1) *
+    split)``, ``i < ceil(max_tokens / split)``, cover every token exactly
+    once; the context lengths are not read, so choosing costs no copy from
+    the card."""
+    unit = math.lcm(page, CHUNK)
+    runs = max(1, -(-WAVES * SMS // max(1, B * KVH)))
+    shortest = -(-MIN_SPLIT // unit) * unit
+    return max(max_tokens // runs // unit * unit, shortest)
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
@@ -29,7 +57,7 @@ def _check_cuda(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
         raise ValueError(f"paged_attention: {name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim or not t.is_contiguous():
         raise ValueError(f"paged_attention: {name} must be a contiguous {ndim}-d tensor")
-    if ndim == 4 and t.data_ptr() % 16:  # the pages are read in 16-byte vectors
+    if t.is_floating_point() and t.data_ptr() % 16:  # read in 16-byte vectors
         raise ValueError(f"paged_attention: {name} must be 16-byte aligned")
 
 
@@ -64,22 +92,28 @@ def paged_attention_cuda(
     if H % KVH:
         raise ValueError(f"paged_attention: H={H} must be a multiple of KVH={KVH}")
     group = H // KVH
-    vec = 16 // q.element_size()
-    if Dh % vec or Dh > MAX_HEAD_DIM or group > MAX_GROUP or group * Dh > MAX_GROUP_ELEMS:
+    if Dh not in HEAD_DIMS or group * Dh > MAX_GROUP_ELEMS:
         raise ValueError(
-            f"paged_attention: needs Dh a multiple of {vec} and <= {MAX_HEAD_DIM}, "
-            f"H/KVH <= {MAX_GROUP} and H/KVH*Dh <= {MAX_GROUP_ELEMS}; got Dh={Dh}, "
-            f"H/KVH={group}")
+            f"paged_attention: needs Dh in {HEAD_DIMS} and H/KVH*Dh <= {MAX_GROUP_ELEMS}; "
+            f"got Dh={Dh}, H/KVH={group}")
+    if B > 65535 or KVH > 65535:
+        raise ValueError("paged_attention: B and KVH must be at most 65535")
     out = torch.empty_like(q)
     if B == 0 or H == 0:
         return out
     scale = scale if scale is not None else Dh**-0.5
+    split = split_tokens(B, KVH, max_pages * page, page)
+    n_split = -(-max_pages * page // split)
+    # partial (acc, then m and l) of every (sequence, KV head, run, head)
+    part = (torch.empty(B * KVH * n_split * group * (Dh + 2), dtype=torch.float32, device=dev)
+            if n_split > 1 else None)
     lib = _build.load()
     fn = lib.paged_attention_f32 if q.dtype == torch.float32 else lib.paged_attention_bf16
     err = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-        context_lens.data_ptr(), out.data_ptr(), B, H, KVH, Dh, page, max_pages, P,
-        float(scale), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        context_lens.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
+        B, H, KVH, Dh, page, max_pages, P, split, n_split, float(scale), dev.index,
+        _build.stream(dev),
     )
     _build.check("paged_attention", err)
     launches += 1

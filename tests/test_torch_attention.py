@@ -10,8 +10,12 @@ rtol/atol 2e-3 for float32 (fp32 sums in another order) and 5e-2 for
 bfloat16 inputs (bf16 rounding of the output and, against an fp32 ref, of the
 inputs).  A CUDA kernel and its plain version read the same inputs, compute
 in fp32 and round the output once, so they are held tighter: within 1e-6 in
-float32, within one bf16 ulp (2^-7 of the value) in bfloat16.
+float32, within one bf16 ulp (2^-7 of the value) in bfloat16.  The bf16
+kernels multiply on the tensor cores with P split into two bf16 terms; the
+CPU emulation at the end of this file shows why one bf16 term is not enough.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -203,10 +207,15 @@ CARD_FLASH = FLASH_SHAPES + [
     (2, 8, 2, 100, 260, 64, False, 70),
     (1, 4, 2, 70, 50, 32, True, None),       # causal, Sq > Skv: leading rows see nothing
 ]
+CARD_FLASH += [
+    (1, 4, 2, 200, 330, 32, True, None),     # Dh 32, lengths off the 128-row tiles
+    (1, 2, 1, 190, 300, 256, True, 100),     # Dh 256, window, off the 64-key tiles
+]
 CARD_PAGED = PAGED_SHAPES + [
     (8, 32, 4, 128, 1024, 16, 64),
     (3, 8, 1, 256, 64, 16, 20),
     (2, 16, 2, 64, 40, 4, 17),
+    (2, 32, 4, 128, 600, 16, 300),           # ~19 runs of 256 tokens, permuted tables
 ]
 
 
@@ -255,3 +264,153 @@ def test_kernels_give_zeros_where_no_key_is_seen(cuda):
     q, k, v = _flash_inputs(1, 2, 1, 40, 24, 32, seed=4)
     got = flash_attention(*_t(q, k, v, device=cuda), causal=True)
     assert torch.equal(got[:, :, :16], torch.zeros_like(got[:, :, :16]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_mixes_empty_single_and_multi_run_contexts(dtype, cuda):
+    """One batch whose contexts take no run, part of one run, one token,
+    and many runs (the last ragged), so the combine sees every case."""
+    B, H, KVH, Dh, page, max_pages = 5, 32, 4, 128, 16, 200
+    q, kp, vp, bt, _ = _paged_inputs(B, H, KVH, Dh, B * max_pages, page, max_pages, seed=12,
+                                     permute=True)
+    split = paged_kernel.split_tokens(B, KVH, max_pages * page, page)
+    cl = np.asarray([0, 1, split - 3, 3 * split + 5, max_pages * page], np.int32)
+    assert max_pages * page > 3 * split  # several runs a sequence
+    qt, kt, vt = _t(q, kp, vp, device=cuda, dtype=dtype)
+    btt, clt = _t(bt, cl, device=cuda)
+    got = paged_attention(qt, kt, vt, btt, clt)
+    want = paged_attention_ref(qt, kt, vt, btt, clt)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_paged_kernel_refuses_head_dims_it_was_not_built_for(cuda):
+    assert paged_kernel.HEAD_DIMS == flash_kernel.HEAD_DIMS
+    n0 = paged_kernel.launches
+    q, kp, vp, bt, cl = _paged_inputs(2, 4, 2, 16, 8, 8, 2, seed=1)  # Dh 16
+    with pytest.raises(ValueError, match="Dh"):
+        paged_attention(*_t(q, kp, vp, bt, cl, device=cuda))
+    assert paged_kernel.launches == n0
+
+
+# ------------------------------- the kernels' arithmetic, emulated on the CPU
+
+
+def _tiled_attention(q, k, v, causal, split_p, bk=128):
+    """The bf16 flash kernel's arithmetic in plain torch: fp32 S = Q K^T per
+    key tile, online softmax in fp32, O += P V with P either split into
+    hi = bf16(p) and lo = bf16(p - hi) or rounded once to bf16; q, k, v
+    are bf16 and every product accumulates in fp32, as on the tensor cores."""
+    B, H, S, Dh = q.shape
+    group = H // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    scale = Dh**-0.5
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros(B, H, S, 1)
+    o = torch.zeros(B, H, S, Dh)
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, bk):
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + bk]) * scale
+        if causal:
+            s = s.masked_fill(torch.arange(k0, min(S, k0 + bk))[None, :] > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        terms = [hi, (p - hi).bfloat16().float()] if split_p else [hi]
+        o = o * alpha + sum(torch.einsum("bhqk,bhkd->bhqd", t, vf[:, :, k0:k0 + bk])
+                            for t in terms)
+        m = m_new
+    return (o / l).bfloat16()
+
+
+@pytest.mark.parametrize("H,KVH,Dh,causal", [(32, 4, 128, True), (12, 12, 64, False)],
+                         ids=["yi-6b", "whisper-small"])
+def test_split_p_is_what_keeps_the_tensor_core_product_within_one_ulp(H, KVH, Dh, causal):
+    """Why the bf16 flash kernel multiplies V by two bf16 terms of P: at
+    Yi-6B's and whisper-small's widths (S = 512) P rounded once to bf16
+    misses the kernel-vs-plain bar of one bf16 ulp, and hi + lo meets it."""
+    q, k, v = _t(*_flash_inputs(1, H, KVH, 512, 512, Dh, seed=Dh + H), dtype=torch.bfloat16)
+    want = attention_ref(q, k, v, causal=causal).float()
+    split = _tiled_attention(q, k, v, causal, split_p=True).float()
+    single = _tiled_attention(q, k, v, causal, split_p=False).float()
+    torch.testing.assert_close(split, want, **CARD_TOL[torch.bfloat16])
+    assert not torch.allclose(single, want, **CARD_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("B", [1, 8, 32])
+@pytest.mark.parametrize("H,KVH,Dh,page", sorted({s[1:4] + (s[5],) for s in CARD_PAGED}))
+def test_split_rule_covers_every_token_once(B, H, KVH, Dh, page):
+    """split_tokens at every context 1..4096: runs are multiples of the page
+    and of the chunk, no shorter than MIN_SPLIT, cover each token of the
+    context exactly once, and give WAVES waves of blocks unless the runs are
+    already the shortest allowed."""
+    for ctx in range(1, 4097):
+        max_pages = -(-ctx // page)
+        max_tokens = max_pages * page
+        split = paged_kernel.split_tokens(B, KVH, max_tokens, page)
+        assert split % page == 0 and split % paged_kernel.CHUNK == 0
+        assert split >= paged_kernel.MIN_SPLIT
+        n_split = -(-max_tokens // split)
+        # the kernel's runs: [i * split, min(ctx, (i + 1) * split)) for the i
+        # whose run starts inside the context
+        runs = [range(i * split, min(ctx, (i + 1) * split)) for i in range(n_split)
+                if i * split < ctx]
+        assert [t for r in runs for t in r] == list(range(ctx))
+        shortest = -(-paged_kernel.MIN_SPLIT // math.lcm(page, paged_kernel.CHUNK)) * \
+            math.lcm(page, paged_kernel.CHUNK)
+        assert B * KVH * n_split >= paged_kernel.WAVES * paged_kernel.SMS or split == shortest
+
+
+def _split_combine(q, kp, vp, bt, cl, split):
+    """The paged kernel's split-and-combine arithmetic in plain fp32 torch:
+    each run of ``split`` tokens keeps (m, l, acc) from m = -1e30, masked
+    tokens add nothing, a run past the context is skipped, and the runs
+    are combined as acc 2^(m - M) / (l 2^(m - M))."""
+    B, H, Dh = q.shape
+    _, page, KVH, _ = kp.shape
+    group = H // KVH
+    scale2 = Dh**-0.5 * math.log2(math.e)
+    out = torch.zeros(B, H, Dh)
+    for b in range(B):
+        ctx = max(0, min(int(cl[b]), bt.shape[1] * page))
+        pos = torch.arange(ctx)
+        k = kp[bt[b, pos // page].long(), pos % page].float()  # (ctx, KVH, Dh)
+        v = vp[bt[b, pos // page].long(), pos % page].float()
+        parts = []
+        for t0 in range(0, ctx, split):
+            kk = k[t0:t0 + split].repeat_interleave(group, dim=1)  # (n, H, Dh)
+            vv = v[t0:t0 + split].repeat_interleave(group, dim=1)
+            s = torch.einsum("hd,nhd->hn", q[b].float(), kk) * scale2
+            m = torch.maximum(torch.full((H,), -1e30), s.amax(-1))
+            p = torch.exp2(s - m[:, None])
+            parts.append((m, p.sum(-1), torch.einsum("hn,nhd->hd", p, vv)))
+        if parts:
+            ms = torch.stack([pt[0] for pt in parts])
+            f = torch.exp2(ms - ms.amax(0))
+            l = sum(fi * pt[1] for fi, pt in zip(f, parts))
+            acc = sum(fi[:, None] * pt[2] for fi, pt in zip(f, parts))
+            out[b] = acc / torch.clamp(l, min=1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("split", [32, 96, 256])
+def test_split_and_combine_matches_the_plain_version(split):
+    """Contexts of 0, 1, a ragged run and several runs, some runs empty
+    (the table is longer than every context), held to the fp32 bar."""
+    B, H, KVH, Dh, page, max_pages = 5, 8, 2, 32, 16, 40
+    q, kp, vp, bt, _ = _paged_inputs(B, H, KVH, Dh, B * max_pages, page, max_pages, seed=split,
+                                     permute=True)
+    cl = np.asarray([0, 1, split - 7, 3 * split + 5, max_pages * page - 9], np.int32)
+    args = _t(q, kp, vp, bt, cl)
+    got = _split_combine(*args, split=split)
+    want = paged_attention_ref(*args)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    torch.testing.assert_close(got, want, **CARD_TOL[torch.float32])

@@ -1,0 +1,37 @@
+#!/usr/bin/env python3
+"""chip_smoke.py's attention rows (phase 3) for one checkout, as JSON.
+
+    python3 tools/attention_rows.py CHECKOUT OUT.json
+
+Builds CHECKOUT's kernels, runs its ``chip_smoke.phase_attention`` on the
+CUDA card and writes the rows, the card line and the build seconds to
+OUT.json.  To compare two commits on one card, unpack the other commit into
+an ignored directory (``git archive``) and run both in one call, in turns:
+parent, change, change, parent.
+"""
+
+import json
+import os
+import sys
+import time
+
+checkout, out_path = os.path.abspath(sys.argv[1]), os.path.abspath(sys.argv[2])
+os.chdir(checkout)
+sys.path[:0] = [checkout, os.path.join(checkout, "src")]
+
+import torch  # noqa: E402
+
+from repro_torch.kernels import _build  # noqa: E402
+
+t0 = time.perf_counter()
+_build.build()
+_build.load()
+build_s = time.perf_counter() - t0
+
+import chip_smoke  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+card = chip_smoke.card_line()
+rows, _ = chip_smoke.phase_attention(torch.device("cuda"), card)
+with open(out_path, "w") as f:
+    json.dump(dict(checkout=checkout, card=card, build_s=build_s, rows=rows), f, indent=1)
