@@ -11,7 +11,10 @@ Phases (each one that fails ends the run with a non-zero exit):
               binary_ip / int4_dist at the search path's shapes and at SIFT1M
               scale; paged_attention at Yi-6B widths (B x context sweep, bf16
               and fp32 pages); flash_attention at Yi-6B prefill, a gemma3-1b
-              local layer and whisper-small's encoder.  Max error, kernel,
+              local layer and whisper-small's encoder, bf16 and fp32 inputs
+              (fp32 rows bounded at the TF32 peak, the fp32 peak beside it;
+              the fp32 and bf16 kernels must show tensor-core instructions
+              in cuobjdump -sass).  Max error, kernel,
               plain and library-yardstick times (CUDA events, median of 30),
               and the least time the card could take (the bound)
   4. tables   a 1M x 128 index registered once in the torch distance engine;
@@ -70,12 +73,17 @@ from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
 from repro_torch.serving.kv_pool import PagedKVPool  # noqa: E402
 from repro_torch.serving.scheduler import CacheAwareScheduler, ServeRequest  # noqa: E402
 
-# H100 SXM data-sheet peaks: HBM3 bytes/s, fp32 (non-tensor) and bf16
+# H100 SXM data-sheet peaks: HBM3 bytes/s, fp32 (non-tensor), TF32 and bf16
 # (dense tensor-core) flop/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
+# the peak of the units each kernel multiplies on, by input dtype: paged
+# fp32 pages on the CUDA cores, flash fp32 on the tensor cores in 3xTF32
+# (its bound counts the useful products only, at the TF32 peak)
 PEAK_FLOP_PER_S = {torch.float32: FP32_FLOP_PER_S, torch.bfloat16: BF16_FLOP_PER_S}
+FLASH_PEAK_FLOP_PER_S = {torch.float32: TF32_FLOP_PER_S, torch.bfloat16: BF16_FLOP_PER_S}
 # kernel vs plain: fp32 sums in another order (tests/test_kernels.py's bars)
 TOL = {"binary_ip": dict(rtol=1e-5, atol=1e-4), "int4_dist": dict(rtol=1e-4, atol=1e-3)}
 # attention kernel vs plain on the same inputs, by input dtype.  Both compute
@@ -92,15 +100,21 @@ LIB_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5), torch.bfloat16: dict(rtol=
 # Yi-6B attention (src/repro/configs/yi_6b.py): 32 query heads, 4 KV heads,
 # head dim 128; KV pages of 16 tokens
 YI = dict(H=32, KVH=4, Dh=128, page=16)
-# the attention rows' times before the kernels' Hopper redesign (ms, CUDA
-# events, NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), where PERF.md
-# recorded one, by (shape, input dtype)
+# each row's time before its kernel's Hopper redesign (ms, CUDA events,
+# NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), where PERF.md recorded
+# one, by (kernel, shape, input dtype): the bf16 attention rows and paged
+# fp32 before the tensor-core redesign of those kernels, fp32 flash and
+# int4_dist before theirs
 EARLIER_MS = {
-    ("B=8 ctx=2048", "bfloat16"): 0.391, ("B=32 ctx=4096", "bfloat16"): 0.783,
-    ("B=8 ctx=2048", "float32"): 0.473, ("yi-6b prefill S=2048", "bfloat16"): 1.624,
-    ("gemma3-1b local S=2048 w=512", "bfloat16"): 0.217,
-    ("whisper-small encoder S=1500", "bfloat16"): 0.444,
-    ("yi-6b prefill S=512", "float32"): 0.176,
+    ("paged_attention", "B=8 ctx=2048", "bfloat16"): 0.391,
+    ("paged_attention", "B=32 ctx=4096", "bfloat16"): 0.783,
+    ("paged_attention", "B=8 ctx=2048", "float32"): 0.473,
+    ("flash_attention", "yi-6b prefill S=2048", "bfloat16"): 1.624,
+    ("flash_attention", "gemma3-1b local S=2048 w=512", "bfloat16"): 0.217,
+    ("flash_attention", "whisper-small encoder S=1500", "bfloat16"): 0.444,
+    ("flash_attention", "yi-6b prefill S=512", "float32"): 0.1715,
+    ("int4_dist", "B=8 N=256 d=128 table=1000000 gathered", "float32"): 0.0581,
+    ("int4_dist", "B=8 N=1000000 d=128 table=1000000 sweep", "float32"): 0.1110,
 }
 # engine vs the NumPy batch engine, whose estimator epilogue is float64
 HOST_TOL = dict(rtol=2e-3, atol=2e-3)
@@ -161,10 +175,15 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+ATTENTION_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_tf32_kernel",
+                     "paged_attention_mma_kernel", "paged_attention_f32_kernel")
+
+
 def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
-    """Tensor-core instructions (Hopper's HGMMA, mma.sync's HMMA) in each
-    attention kernel of the built library, from cuobjdump -sass beside
-    nvcc; empty when cuobjdump is missing."""
+    """Tensor-core instructions (Hopper's HGMMA, mma.sync's HMMA, and of
+    those the ones on TF32 operands) in each attention kernel of the built
+    library, from cuobjdump -sass beside nvcc; empty when cuobjdump is
+    missing."""
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return {}
@@ -174,14 +193,13 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            name = next((k for k in ("flash_attention_wgmma_kernel", "flash_attention_f32_kernel",
-                                     "paged_attention_mma_kernel", "paged_attention_f32_kernel")
-                         if k in fn), None)
+            name = next((k for k in ATTENTION_KERNELS if k in fn), None)
             if name is not None:
-                counts.setdefault(name, {"HGMMA": 0, "HMMA": 0})
+                counts.setdefault(name, {"HGMMA": 0, "HMMA": 0, "TF32": 0})
         elif name is not None:
             for op in ("HGMMA", "HMMA"):
                 counts[name][op] += f" {op}." in line
+            counts[name]["TF32"] += ("MMA." in line) and ".TF32" in line
     return counts
 
 
@@ -310,6 +328,7 @@ def check_int4_dist(dev, gen, B, N, d, T, gather) -> dict:
         device_us=device_us(lambda: i4_ops.int4_dist2(q, codes, lo, step, ids)),
         plain_device_us=device_us(plain),
         bound_ms=b_ms, bound_by=b_by,
+        earlier_ms=EARLIER_MS.get(("int4_dist", _shape(B, N, d, T, gather), "float32")),
     )
 
 
@@ -333,12 +352,13 @@ def phase_kernels(dev) -> list[dict]:
     rows.append(check_int4_dist(dev, gen, 8, 1_000_000, 128, 1_000_000, gather=False))
     print(f"{'kernel':10} {'B':>2} {'N':>8} {'d':>4} {'table':>8} {'q':>8} "
           f"{'max_err':>9} {'ms':>9} {'plain_ms':>9} {'lib_ms':>9} {'bound_ms':>9} "
-          f"{'dev_us':>8} {'pl_dev_us':>9} by")
+          f"{'dev_us':>8} {'pl_dev_us':>9} {'prev_ms':>8} by")
     for r in rows:
+        earlier = "—" if r.get("earlier_ms") is None else f"{r['earlier_ms']:.4f}"
         print(f"{r['kernel']:10} {r['B']:>2} {r['N']:>8} {r['d']:>4} {r['table']:>8} "
               f"{r['dtype']:>8} {r['max_abs_err']:9.2e} {r['ms']:9.5f} {r['plain_ms']:9.5f} "
               f"{r['library_ms']:9.5f} {r['bound_ms']:9.6f} {_us(r['device_us']):>8} "
-              f"{_us(r['plain_device_us']):>9} {r['bound_by']}")
+              f"{_us(r['plain_device_us']):>9} {earlier:>8} {r['bound_by']}")
     return rows
 
 
@@ -447,14 +467,18 @@ def check_flash(dev, gen, name, B, H, KVH, S, Dh, causal, window, dtype) -> dict
     err, lib_err = _check("flash_attention", name, dtype, kernel(), plain(), library())
     pairs = int(mask.sum())
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    b_ms, b_by = bound_ms(nbytes, 4 * B * H * Dh * pairs, PEAK_FLOP_PER_S[dtype])
+    flops = 4 * B * H * Dh * pairs
+    b_ms, b_by = bound_ms(nbytes, flops, FLASH_PEAK_FLOP_PER_S[dtype])
+    # fp32: also the bound at the CUDA cores' fp32 peak, beside the TF32
+    # one, so that the rows stay comparable with those recorded before
+    fp32_ms = bound_ms(nbytes, flops)[0] if dtype == torch.float32 else None
     return _rates(dict(
         kernel="flash_attention", shape=name, B=B, H=H, KVH=KVH, S=S, Dh=Dh, causal=causal,
         window=window, dtype=str(dtype)[6:], max_abs_err=err, library_err=lib_err,
         ms=time_ms(kernel), plain_ms=time_ms(plain), library_ms=time_ms(library),
         library_backend="flash" if flash else "efficient",
         device_us=device_us(kernel, key="flash_attention"),
-        bound_ms=b_ms, bound_by=b_by, flops=4 * B * H * Dh * pairs, nbytes=nbytes,
+        bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=fp32_ms, flops=flops, nbytes=nbytes,
     ))
 
 
@@ -469,7 +493,7 @@ def _rates(r: dict) -> dict:
     r["bound_share"] = r["bound_ms"] / r["ms"]
     dev = r["device_us"]
     r["device_bound_share"] = None if dev is None else r["bound_ms"] / (dev / 1e3)
-    r["earlier_ms"] = EARLIER_MS.get((r["shape"], r["dtype"]))
+    r["earlier_ms"] = EARLIER_MS.get((r["kernel"], r["shape"], r["dtype"]))
     return r
 
 
@@ -493,6 +517,10 @@ def phase_attention(dev, card: str) -> tuple[list[dict], dict[str, int]]:
     rows.append(check_flash(dev, gen, "whisper-small encoder S=1500", 1, 12, 12, 1500, 64,
                             False, None, torch.bfloat16))
     rows.append(check_flash(dev, gen, "yi-6b prefill S=512", S=512, dtype=torch.float32, **yi))
+    rows.append(check_flash(dev, gen, "gemma3-1b local S=2048 w=512", 1, 4, 1, 2048, 256,
+                            True, 512, torch.float32))
+    rows.append(check_flash(dev, gen, "whisper-small encoder S=1500", 1, 12, 12, 1500, 64,
+                            False, None, torch.float32))
     launches = read_launches()
     print(f"attention kernels on {card}:")
     print(f"{'kernel':15} {'shape':30} {'dtype':8} {'max_err':>9} {'lib_err':>9} {'ms':>9} "
@@ -506,6 +534,10 @@ def phase_attention(dev, card: str) -> tuple[list[dict], dict[str, int]]:
               f"{r['library_ms']:9.5f} {r['library_backend']:9} {r['bound_ms']:9.6f} "
               f"{_us(r['device_us']):>9} {r['rate']:8.1f} {r['rate_unit']:7} "
               f"{r['bound_share']:6.3f} {dsh:>6} {r['bound_by']}")
+    for r in rows:
+        if r.get("bound_fp32_ms") is not None:
+            print(f"  {r['shape']} fp32: bound {r['bound_ms']:.6f} ms at the TF32 peak, "
+                  f"{r['bound_fp32_ms']:.6f} ms at the fp32 (CUDA-core) peak")
     return rows, launches
 
 
@@ -766,8 +798,9 @@ def main() -> int:
     sass = sass_counts(_build.BUILD_DIR / _build.LIB_NAME)
     print("sass: tensor-core instructions per attention kernel family:", json.dumps(sass))
     require(not sass or (sass["flash_attention_wgmma_kernel"]["HGMMA"] > 0 and
-                         sass["paged_attention_mma_kernel"]["HMMA"] > 0),
-            f"the bf16 attention kernels must use the tensor cores: {sass}")
+                         sass["paged_attention_mma_kernel"]["HMMA"] > 0 and
+                         sass["flash_attention_tf32_kernel"]["TF32"] > 0),
+            f"the bf16 and fp32 flash and bf16 paged kernels must use the tensor cores: {sass}")
 
     phase_s = {}
     t0 = time.perf_counter()

@@ -1,7 +1,8 @@
 // Device helpers shared by the kernels: fp32 / bf16 conversion (round to
 // nearest even; bf16 -> fp32 is exact), cp.async, mbarrier, TMA and named
-// barrier wrappers, ldmatrix and mma.sync, and the wgmma products with their
-// shared-memory descriptors (sm_90a).
+// barrier wrappers, ldmatrix and mma.sync (bf16, and tf32 with the 3xTF32
+// split), and the wgmma products with their shared-memory descriptors
+// (sm_90a).
 
 #pragma once
 
@@ -26,6 +27,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // 16 bytes global -> shared, bypassing L1; completes with cp_async_wait
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+// the same, or 16 zero bytes when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -131,6 +138,31 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uin
   const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
+}
+
+// x as hi + lo, two TF32 operands: hi = x rounded to 10 mantissa bits (to
+// nearest, ties away from zero, as cvt.rna.tf32.f32 but in two integer
+// operations: sm_90 has no single instruction for that cvt), and lo = x - hi,
+// exact in fp32, passed with its half-ulp added so that the tensor core,
+// which ignores the low 13 bits of a TF32 operand, sees it rounded to
+// nearest too.  hi + lo carries 21 of fp32's 24 significant bits.  For
+// finite x only.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+// d (16 x 8, fp32) += A (16 x 8, tf32) . B (8 x 8, tf32).  Thread (g, t) =
+// (lane / 4, lane % 4) holds a = {A[g][t], A[g + 8][t], A[g][t + 4],
+// A[g + 8][t + 4]}, b = {B[t][g], B[t + 4][g]} and d = {D[g][2t],
+// D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1]}.  Not volatile, so that
+// the compiler may interleave independent products between dependent
+// ones, each of which waits out the latency of the one before it.
+__device__ __forceinline__ void mma_tf32_1688(float* d, const uint32_t* a, uint32_t b0,
+                                              uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------- sm_90a wgmma

@@ -13,7 +13,9 @@
 // key) pair, e.g. 34.4 GFLOP for Yi-6B's causal prefill at S = 2048 against
 // a few MB of q, k, v and out, far above both ridges (20 flops a byte in
 // fp32, 295 in bf16).  The bound is the tensor-core peak for bf16 inputs
-// (35 us there) and the fp32 peak for fp32 inputs.
+// (35 us there) and the TF32 peak (495 TFLOP/s, useful products only) for
+// fp32 inputs, which now run on the tensor cores; chip_smoke.py also gives
+// the fp32 CUDA-core peak's bound (67 TFLOP/s) for continuity.
 //
 // bf16 inputs: tensor cores, fed by TMA.  One block per (128-row query
 // tile, head, sequence), heaviest tiles first under causal masking: a
@@ -39,13 +41,42 @@
 // (exp2(-inf - m) with a finite m that starts at -1e30), so a row that sees
 // no key gives 0 / max(0, 1e-30) = 0.
 //
-// fp32 inputs keep a CUDA-core kernel: the fp32 bar (1e-4) rules out TF32.
-// One block per (64-row query tile, head, sequence), a loop over 64-key
-// tiles converted to fp32 in shared memory (rows padded by one float), 16 x
-// 16 threads each holding a 4 x 4 block of scores and the same 4 rows of the
-// output, IEEE fp32 throughout.
+// fp32 inputs: 3xTF32 on the tensor cores.  One TF32 pass (10 mantissa
+// bits) errs by up to 2^-11 of each product, 9-77x over the fp32 bar
+// (rtol 1e-4, atol 1e-5) at Yi-6B, whisper-small and Dh 256 widths; with
+// every operand split into hi = tf32(x) and lo = tf32(x - hi) and each
+// product taken as lo.hi + hi.lo + hi.hi in fp32 accumulators, the error
+// falls to ~1e-6, 1-5 % of the bar (tests/test_torch_attention.py emulates
+// both).  That is 3x the useful products, still far above the CUDA cores'
+// rate.  The instruction is mma.sync m16n8k8 tf32: TF32 wgmma would want V
+// K-major in shared memory (a transpose on the way in), and the split has
+// to happen in registers anyway.
 //
-// Shared memory above 48 KB (56-225 KB bf16, 115-214 KB fp32): the launch
+// One block per (64-row query tile, head, sequence), four warps of 16
+// query rows; under causal masking the heavy half of the tiles is launched
+// first and the light half after it, so that the two blocks an SM holds
+// carry about equal work.  Q and a two-stage ring of K/V tiles (64 keys;
+// 32 at Dh >= 128, so that two blocks fit an SM at Dh 128 and two stages
+// fit at Dh 256) come in by cp.async, the copy of tile i + 1 overlapping
+// the products of tile i, rows past Sq and Skv zero-filled.  Operands are
+// split on the fly as fragments are read, in integer operations (sm_90
+// has no single instruction for cvt.rna.tf32: the compiler emits a
+// sequence of compares, adds and selects); Q stays in shared memory (at Dh 256 a warp's O
+// alone is 128 registers a thread).  The three products of a fragment are
+// issued term by term across the fragments of a step (S keeps hi.hi and
+// the two lo terms in separate accumulators), since an mma.sync into an
+// accumulator waits out the latency of the one before it.
+//
+// Layouts.  In S's k-steps fragment column t is dim 2t and column t + 4 is
+// dim 2t + 1, so a lane reads its two dims of Q and of K as one float2.
+// The S accumulator gives lane (g, t) keys 2t and 2t + 1 of each 8-key
+// slice; P's A fragment takes column t as key 2t and t + 4 as key 2t + 1,
+// and V's B fragment is read in that key order, so P never leaves the
+// registers.  Q and K rows are padded by 8 floats, V rows (read as single
+// words, four keys at once) by 4, so that every fragment read hits
+// distinct banks.  The online softmax and the masks are the bf16 kernel's.
+//
+// Shared memory above 48 KB (56-225 KB bf16, 46-200 KB fp32): the launch
 // raises the dynamic limit first and returns the error if the card refuses.
 
 #include <cuda.h>
@@ -354,143 +385,226 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------------ fp32: CUDA cores
+// ------------------------------------------------------------ fp32: 3xTF32 mma.sync
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16
-
-// rows [r0, r0 + 64) of a (rows, DH) matrix into shared memory with row
-// stride `stride`; rows at or past `rows` become zeros.
 template <int DH>
-__device__ __forceinline__ void load_tile(const float* __restrict__ src, float* dst, int stride,
-                                          int r0, int rows) {
+struct F32Tile {
+  static constexpr int BQ = 64;                 // query rows per block, 16 per warp
+  static constexpr int BK = DH >= 128 ? 32 : 64;  // keys per tile
+  static constexpr int STAGES = 2;              // K/V ring
+  // padded row strides (floats): Q and K are read as float2 pairs (8 banks
+  // a row apart), V as single words (4 banks a row apart)
+  static constexpr int LDK = DH + 8;
+  static constexpr int LDV = DH + 4;
+  static constexpr int THREADS = 128;
+  static constexpr int K_FLOATS = BK * LDK;
+  static constexpr int V_FLOATS = BK * LDV;
+  static constexpr int SMEM = (BQ * LDK + STAGES * (K_FLOATS + V_FLOATS)) * 4;
+};
+
+// rows [r0, r0 + n) of a (rows, DH) fp32 matrix into shared memory with row
+// stride LD by cp.async, 16 bytes a thread at a time; rows at or past
+// `rows` are zero-filled
+template <int DH, int LD>
+__device__ __forceinline__ void load_rows_async(const float* __restrict__ src, float* dst, int r0,
+                                                int n, int rows) {
   constexpr int PER_ROW = DH / 4;
-  for (int idx = threadIdx.x; idx < 64 * PER_ROW; idx += kThreads) {
-    const int r = idx / PER_ROW, d0 = (idx - r * PER_ROW) * 4;
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < rows)
-      f = *reinterpret_cast<const float4*>(src + static_cast<int64_t>(r0 + r) * DH + d0);
-    float* d = dst + r * stride + d0;
-    d[0] = f.x; d[1] = f.y; d[2] = f.z; d[3] = f.w;
+  for (int idx = threadIdx.x; idx < n * PER_ROW; idx += F32Tile<DH>::THREADS) {
+    const int r = idx / PER_ROW, c = (idx - r * PER_ROW) * 4;
+    const bool ok = r0 + r < rows;
+    cp_async16_zfill(dst + r * LD + c, src + (ok ? static_cast<int64_t>(r0 + r) * DH + c : 0),
+                     ok);
   }
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
+__global__ void __launch_bounds__(128) flash_attention_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, Shape s) {
-  constexpr int NJ = DH / 16;     // output columns per thread
-  constexpr int QS = DH + 1;      // padded row stride of Q and K
-  constexpr int PS = kBK + 1;     // padded row stride of P
+    float* __restrict__ out, Shape s, int n_qtiles) {
+  using C = F32Tile<DH>;
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // (kBQ, DH + 1)
-  float* ks = qs + kBQ * QS;                    // (kBK, DH + 1)
-  float* vs = ks + kBK * QS;                    // (kBK, DH)
-  float* ps = vs + kBK * DH;                    // (kBQ, kBK + 1)
+  float* qs = reinterpret_cast<float*>(smem4);  // (BQ, LDK)
+  float* ks = qs + C::BQ * C::LDK;              // STAGES x (BK, LDK)
+  float* vs = ks + C::STAGES * C::K_FLOATS;     // STAGES x (BK, LDV)
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  // Under causal masking a query tile's work grows with its index.  Blocks
+  // start in launch order and two share an SM, so the first half of the
+  // launch takes the heavy half of the tiles, heaviest first, and the
+  // second half the light half, lightest first: the block that joins a
+  // heavy one on its SM is a light one.
+  const int L = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int HB = gridDim.y * gridDim.z, rank = L / HB, hb = L % HB;
+  const int half = (n_qtiles + 1) / 2;
+  const int tile = !s.causal ? rank : rank < half ? n_qtiles - 1 - rank : rank - half;
+  const int q0 = tile * C::BQ, h = hb % gridDim.y, b = hb / gridDim.y;
   const int kvh = h / (s.H / s.KVH);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int offset = s.Skv - s.Sq;  // key position of query row 0
   const float* qb = q + (static_cast<int64_t>(b) * s.H + h) * s.Sq * DH;
   const float* kb = k + (static_cast<int64_t>(b) * s.KVH + kvh) * s.Skv * DH;
   const float* vb = v + (static_cast<int64_t>(b) * s.KVH + kvh) * s.Skv * DH;
-
-  load_tile<DH>(qb, qs, QS, q0, s.Sq);
-
   int k_lo, k_hi;
-  key_range(s, q0, kBQ, k_lo, k_hi);
+  key_range(s, q0, C::BQ, k_lo, k_hi);
+  const int kt0 = k_lo / C::BK;
+  const int n_tiles = k_lo < k_hi ? (k_hi + C::BK - 1) / C::BK - kt0 : 0;
 
-  float m_r[4], l_r[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_r[i] = kNegInf;
-    l_r[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  if (n_tiles > 0) {  // group 0: Q and the first K/V tile
+    load_rows_async<DH, C::LDK>(qb, qs, q0, C::BQ, s.Sq);
+    load_rows_async<DH, C::LDK>(kb, ks, kt0 * C::BK, C::BK, s.Skv);
+    load_rows_async<DH, C::LDV>(vb, vs, kt0 * C::BK, C::BK, s.Skv);
   }
+  cp_async_commit();
 
-  for (int kt = k_lo / kBK; k_lo < k_hi && kt * kBK < k_hi; ++kt) {
-    const int kbase = kt * kBK;
-    __syncthreads();  // the previous tile's reads of ks, vs and ps are done
-    load_tile<DH>(kb, ks, QS, kbase, s.Skv);
-    load_tile<DH>(vb, vs, DH, kbase, s.Skv);
-    __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int offset = s.Skv - s.Sq;
+  const int row0 = q0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  const int w_first = q0 + 16 * warp, w_last = w_first + 15;
+  const float scale2 = s.scale * kLog2e;
+  const float* qw = qs + (16 * warp + g) * C::LDK + 2 * t;  // A fragments of this warp's rows
 
-    float sc[4][4];
+  float o[DH / 2];  // o[4n + 2r + c]: row row0 + 8r, dim 8n + 2t + c
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = ks[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], c[j], sc[i][j]);
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) {  // the next tile into the other stage, behind this one
+      const int st = (i + 1) % C::STAGES, k1 = (kt0 + i + 1) * C::BK;
+      load_rows_async<DH, C::LDK>(kb, ks + st * C::K_FLOATS, k1, C::BK, s.Skv);
+      load_rows_async<DH, C::LDV>(vb, vs + st * C::V_FLOATS, k1, C::BK, s.Skv);
     }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* kt = ks + (i % C::STAGES) * C::K_FLOATS;
+    const float* vt = vs + (i % C::STAGES) * C::V_FLOATS;
 
+    // S = Q K^T: sc[4j + 2r + c] is row row0 + 8r, key k0 + 8j + 2t + c.
+    // The order of the 8 dims of a k-step is free as long as A and B agree:
+    // fragment column t is dim 2t and t + 4 is dim 2t + 1, so each lane
+    // reads its two dims of Q and of K as one float2
+    // 3xTF32 as hi.hi into sc and lo.hi + hi.lo into sc2, issued term by
+    // term over the key slices, so that no product waits on the one before
+    float sc[C::BK / 2], sc2[C::BK / 2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i + offset;
-      bool ok[4];
+    for (int j = 0; j < C::BK / 2; ++j) sc[j] = sc2[j] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < DH / 8; ++kk) {
+      const float2 x0 = *reinterpret_cast<const float2*>(qw + 8 * kk);
+      const float2 x1 = *reinterpret_cast<const float2*>(qw + 8 * C::LDK + 8 * kk);
+      uint32_t ah[4], al[4];
+      split_tf32(x0.x, ah[0], al[0]);
+      split_tf32(x1.x, ah[1], al[1]);
+      split_tf32(x0.y, ah[2], al[2]);
+      split_tf32(x1.y, ah[3], al[3]);
+      uint32_t bh[C::BK / 8][2], bl[C::BK / 8][2];
+#pragma unroll
+      for (int j = 0; j < C::BK / 8; ++j) {  // B[dim][key g] = K[8j + g][8kk + 2t (+1)]
+        const float2 kv =
+            *reinterpret_cast<const float2*>(kt + (8 * j + g) * C::LDK + 8 * kk + 2 * t);
+        split_tf32(kv.x, bh[j][0], bl[j][0]);
+        split_tf32(kv.y, bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int j = 0; j < C::BK / 8; ++j) mma_tf32_1688(sc2 + 4 * j, al, bh[j][0], bh[j][1]);
+#pragma unroll
+      for (int j = 0; j < C::BK / 8; ++j) mma_tf32_1688(sc + 4 * j, ah, bh[j][0], bh[j][1]);
+#pragma unroll
+      for (int j = 0; j < C::BK / 8; ++j) mma_tf32_1688(sc2 + 4 * j, ah, bl[j][0], bl[j][1]);
+    }
+#pragma unroll
+    for (int j = 0; j < C::BK / 2; ++j) sc[j] += sc2[j];
+
+    // online softmax in the log2 domain, as in the bf16 kernel
+    const int k0 = (kt0 + i) * C::BK;
+    const bool need_mask = k0 + C::BK > s.Skv ||
+                           (s.causal && k0 + C::BK - 1 > w_first + offset) ||
+                           (s.has_window && k0 <= w_last + offset - s.window);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = row0 + 8 * r + offset;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = kbase + tx + 16 * j;
-        ok[j] = kp < s.Skv && (!s.causal || kp <= qp) && (!s.has_window || kp > qp - s.window);
-        sc[i][j] = ok[j] ? sc[i][j] * s.scale : kNegInf;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      // the 16 threads of a row are lanes with equal bits 4.. of the lane id
+      for (int j = 0; j < C::BK / 8; ++j) {
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m_r[i], mx);
+        for (int c = 0; c < 2; ++c) {
+          float x = sc[4 * j + 2 * r + c];
+          if (need_mask) {
+            const int kp = k0 + 8 * j + 2 * t + c;
+            const bool ok = kp < s.Skv && (!s.causal || kp <= qp) &&
+                            (!s.has_window || kp > qp - s.window);
+            x = ok ? x : -INFINITY;
+          }
+          sc[4 * j + 2 * r + c] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[r], mx * scale2);
+      const float alpha = fast_exp2(m_r[r] - m_new);
+      m_r[r] = m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(sc[i][j] - m_new) : 0.f;
-        ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
-        sum += p;
+      for (int j = 0; j < C::BK / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = fast_exp2(fmaf(sc[4 * j + 2 * r + c], scale2, -m_new));
+          sc[4 * j + 2 * r + c] = p;
+          sum += p;
+        }
       }
+      l_r[r] = l_r[r] * alpha + sum;
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float alpha = expf(m_r[i] - m_new);
-      l_r[i] = alpha * l_r[i] + sum;
-      m_r[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
+      for (int n = 0; n < DH / 8; ++n) {
+        o[4 * n + 2 * r] *= alpha;
+        o[4 * n + 2 * r + 1] *= alpha;
+      }
     }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float p[4];
+    // O += P V.  The A fragment of keys 8j.. takes column t as key 2t and
+    // column t + 4 as key 2t + 1, so it is this thread's own S accumulator
+    // (no shuffle); V's B fragment is read in the same key order
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * PS + kk];
+    for (int j = 0; j < C::BK / 8; ++j) {
+      uint32_t ah[4], al[4];
+      split_tf32(sc[4 * j], ah[0], al[0]);
+      split_tf32(sc[4 * j + 2], ah[1], al[1]);
+      split_tf32(sc[4 * j + 1], ah[2], al[2]);
+      split_tf32(sc[4 * j + 3], ah[3], al[3]);
+      const float* vr = vt + (8 * j + 2 * t) * C::LDV + g;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float vv = vs[kk * DH + tx + 16 * j];
+      for (int n0 = 0; n0 < DH / 8; n0 += 4) {  // four dim slices, term by term
+        uint32_t bh[4][2], bl[4][2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
+        for (int n = 0; n < 4; ++n) {  // B[key][dim g] = V[8j + 2t (+1)][8(n0 + n) + g]
+          split_tf32(vr[8 * (n0 + n)], bh[n][0], bl[n][0]);
+          split_tf32(vr[C::LDV + 8 * (n0 + n)], bh[n][1], bl[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma_tf32_1688(o + 4 * (n0 + n), al, bh[n][0], bh[n][1]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma_tf32_1688(o + 4 * (n0 + n), ah, bl[n][0], bl[n][1]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma_tf32_1688(o + 4 * (n0 + n), ah, bh[n][0], bh[n][1]);
       }
     }
+    __syncthreads();  // this stage is read: the next iteration's copy may overwrite it
   }
+  cp_async_wait<0>();
 
   float* ob = out + (static_cast<int64_t>(b) * s.H + h) * s.Sq * DH;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    const int row = row0 + 8 * r;
     if (row < s.Sq) {
-      const float l = fmaxf(l_r[i], 1e-30f);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) ob[static_cast<int64_t>(row) * DH + tx + 16 * j] = acc[i][j] / l;
+      for (int n = 0; n < DH / 8; ++n)
+        *reinterpret_cast<float2*>(ob + static_cast<int64_t>(row) * DH + 8 * n + 2 * t) =
+            make_float2(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
     }
   }
 }
@@ -498,18 +612,17 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
 template <int DH>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                        const Shape& s, cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(kBQ + kBK) * (DH + 1) + static_cast<size_t>(kBK) * DH +
-       static_cast<size_t>(kBQ) * (kBK + 1)) * sizeof(float);
-  auto kernel = flash_attention_f32_kernel<DH>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  using C = F32Tile<DH>;
+  auto kernel = flash_attention_tf32_kernel<DH>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((s.Sq + kBQ - 1) / kBQ, s.H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q),
-                                           static_cast<const float*>(k),
-                                           static_cast<const float*>(v),
-                                           static_cast<float*>(out), s);
+  const int n_qtiles = (s.Sq + C::BQ - 1) / C::BQ;
+  const dim3 grid(n_qtiles, s.H, B);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(static_cast<const float*>(q),
+                                                static_cast<const float*>(k),
+                                                static_cast<const float*>(v),
+                                                static_cast<float*>(out), s, n_qtiles);
   return cudaGetLastError();
 }
 

@@ -126,6 +126,8 @@ def load() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed), with every entry's
     argtypes and restype declared."""
     global _lib
+    if _lib is not None:  # the launch path: no lock once loaded
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -143,11 +145,11 @@ def loaded() -> bool:
 
 def stream(device) -> int:
     """The raw CUDA stream PyTorch launches on for ``device`` (a CUDA
-    ``torch.device``), as an int for a C entry, read without building a
-    ``torch.cuda.Stream`` object on every call."""
+    ``torch.device`` or its index), as an int for a C entry, read without
+    building a ``torch.cuda.Stream`` object on every call."""
     import torch
 
-    return torch._C._cuda_getCurrentRawStream(device.index)
+    return torch._C._cuda_getCurrentRawStream(device if isinstance(device, int) else device.index)
 
 
 def check(name: str, err: int) -> None:

@@ -1,15 +1,18 @@
 """Launch wrapper for the CUDA ``flash_attention`` kernel
 (``csrc/flash_attention.cu``).
 
-The kernel replaces the Pallas TPU kernel ``_flash_kernel``.  bf16 inputs
-run on the tensor cores: one block per (128-row query tile, head,
-sequence), K/V tiles brought in by TMA by a producer warp, two consumer
-warpgroups doing Q K^T and P V with wgmma and the online softmax in fp32
-registers, P split into two bf16 terms so that the result stays within one
-bf16 ulp of the fp32 plain version.  fp32 inputs run an IEEE fp32 CUDA-core
-kernel.  Both loop over only the key tiles that the causal mask and the
-window leave visible and mask ragged edges in the kernel (nothing is
-padded).  The wrapper validates its arguments, allocates the output and
+The kernel replaces the Pallas TPU kernel ``_flash_kernel``.  Operations
+bound it (4 Dh flops per visible query-key pair), so both input dtypes
+multiply on the tensor cores.  bf16 inputs: one block per (128-row query
+tile, head, sequence), K/V tiles brought in by TMA by a producer warp, two
+consumer warpgroups doing Q K^T and P V with wgmma and the online softmax in
+fp32 registers, P split into two bf16 terms so that the result stays within
+one bf16 ulp of the fp32 plain version.  fp32 inputs: 3xTF32 on mma.sync
+(every operand split into two TF32 terms, three products each), which one
+TF32 pass could not do within the fp32 bar; 64-row query tiles, a cp.async
+ring of K/V tiles, P kept in registers.  Both loop over only the key tiles
+that the causal mask and the window leave visible and mask ragged edges in
+the kernel (nothing is padded).  The wrapper validates its arguments, allocates the output and
 launches on the current stream without synchronising.
 """
 

@@ -17,11 +17,13 @@ def int4_dist2(
     ids: torch.Tensor | None = None,  # (N,) int64 rows, or None for all T
 ) -> torch.Tensor:
     """Refined squared distances (B, N) from packed 4-bit codes, with row n =
-    row ``ids[n]`` of the tables when ``ids`` is given.  CPU tensors take the
-    plain version; anything else launches the kernel, which raises on what
-    it does not take."""
-    if all(t is None or t.device.type == "cpu" for t in (q, codes, lo, step, ids)):
-        if ids is not None:
-            codes, lo, step = codes[ids], lo[ids], step[ids]
-        return _ref.int4_dist2_ref(q, codes, lo, step)
-    return _k.int4_dist_cuda(q.to(torch.float32), codes, lo, step, ids)
+    row ``ids[n]`` of the tables when ``ids`` is given.  When any tensor is
+    on a CUDA card the kernel launches, and raises on what it does not take
+    (a mix of devices among them); otherwise the plain version runs."""
+    if (q.is_cuda or codes.is_cuda or lo.is_cuda or step.is_cuda
+            or (ids is not None and ids.is_cuda)):
+        return _k.int4_dist_cuda(q if q.dtype is torch.float32 else q.float(),
+                                 codes, lo, step, ids)
+    if ids is not None:
+        codes, lo, step = codes[ids], lo[ids], step[ids]
+    return _ref.int4_dist2_ref(q, codes, lo, step)

@@ -11,8 +11,10 @@ bfloat16 inputs (bf16 rounding of the output and, against an fp32 ref, of the
 inputs).  A CUDA kernel and its plain version read the same inputs, compute
 in fp32 and round the output once, so they are held tighter: within 1e-6 in
 float32, within one bf16 ulp (2^-7 of the value) in bfloat16.  The bf16
-kernels multiply on the tensor cores with P split into two bf16 terms; the
-CPU emulation at the end of this file shows why one bf16 term is not enough.
+kernels multiply on the tensor cores with P split into two bf16 terms, the
+fp32 kernel with every operand split into two TF32 terms (3xTF32); the CPU
+emulations at the end of this file show why one term is not enough in
+either, and pin the fp32 kernel's fragment mapping.
 """
 
 import math
@@ -234,6 +236,30 @@ def test_flash_kernel_matches_plain(B, H, KVH, Sq, Skv, Dh, causal, window, dtyp
                                **CARD_TOL[dtype])
 
 
+# the fp32 kernel's edges: Dh 32 and 256 (its two key-tile sizes, 64 and
+# 32), windows, and Sq / Skv off the 64-row query tile and both key tiles
+CARD_FLASH_F32 = [
+    (1, 4, 2, 77, 141, 32, True, 40),
+    (2, 4, 4, 65, 33, 32, False, 20),
+    (1, 2, 1, 97, 161, 256, True, 50),
+    (1, 2, 2, 130, 99, 256, False, 60),
+    (1, 4, 1, 33, 95, 256, True, None),
+    (2, 2, 1, 129, 31, 32, True, None),     # Sq > Skv: leading rows see nothing
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KVH,Sq,Skv,Dh,causal,window", CARD_FLASH_F32)
+def test_flash_f32_kernel_edges_match_plain(B, H, KVH, Sq, Skv, Dh, causal, window, cuda):
+    qt, kt, vt = _t(*_flash_inputs(B, H, KVH, Sq, Skv, Dh, seed=Sq * Skv + Dh), device=cuda)
+    n0 = flash_kernel.launches
+    got = flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert flash_kernel.launches == n0 + 1 and got.dtype == torch.float32
+    want = attention_ref(qt, kt, vt, causal=causal, window=window)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **CARD_TOL[torch.float32])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,KVH,Dh,P,page,max_pages", CARD_PAGED)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -414,3 +440,113 @@ def test_split_and_combine_matches_the_plain_version(split):
     want = paged_attention_ref(*args)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
     torch.testing.assert_close(got, want, **CARD_TOL[torch.float32])
+
+
+# ------------------------------- the fp32 kernel's 3xTF32 products, emulated
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor, three: bool) -> torch.Tensor:
+    """einsum of TF32 operands, products exact and sums in fp32 as on the
+    tensor cores: hi.hi alone, or lo.hi + hi.lo + hi.hi (3xTF32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not three:
+        return torch.einsum(eq, ah, bh)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, ah, bh)
+
+
+def _tf32_attention(q, k, v, causal, three, bk=32):
+    """The fp32 kernel's arithmetic in plain torch: S = Q K^T and O += P V
+    per key tile with TF32 operands, the online softmax in fp32."""
+    B, H, S, Dh = q.shape
+    group = H // k.shape[1]
+    kf = k.repeat_interleave(group, dim=1)
+    vf = v.repeat_interleave(group, dim=1)
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros(B, H, S, 1)
+    o = torch.zeros(B, H, S, Dh)
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, bk):
+        s = _tf32_product("bhqd,bhkd->bhqk", q, kf[:, :, k0:k0 + bk], three) * Dh**-0.5
+        if causal:
+            s = s.masked_fill(torch.arange(k0, min(S, k0 + bk))[None, :] > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _tf32_product("bhqk,bhkd->bhqd", p, vf[:, :, k0:k0 + bk], three)
+        m = m_new
+    return o / l
+
+
+@pytest.mark.parametrize("H,KVH,S,Dh,causal", [(2, 1, 512, 128, True), (2, 2, 1500, 64, False),
+                                              (2, 1, 512, 256, True)],
+                         ids=["yi-6b", "whisper-small", "dh256"])
+def test_three_tf32_terms_keep_the_fp32_product_within_the_bar(H, KVH, S, Dh, causal):
+    """Why the fp32 flash kernel multiplies in 3xTF32: at Yi-6B's,
+    whisper-small's and Dh 256 widths (two heads of each), one TF32 pass
+    misses the fp32 kernel-vs-plain bar (rtol 1e-4, atol 1e-5) and three
+    terms meet it."""
+    q, k, v = _t(*_flash_inputs(1, H, KVH, S, S, Dh, seed=Dh + S))
+    want = attention_ref(q, k, v, causal=causal)
+    three = _tf32_attention(q, k, v, causal, three=True)
+    one = _tf32_attention(q, k, v, causal, three=False)
+    torch.testing.assert_close(three, want, **CARD_TOL[torch.float32])
+    assert not torch.allclose(one, want, **CARD_TOL[torch.float32])
+
+
+def _mma_m16n8k8(a_regs, b_regs):
+    """mma.sync m16n8k8 from the registers of a warp's 32 lanes, lane
+    (g, t) = (lane // 4, lane % 4): a = {A[g][t], A[g+8][t], A[g][t+4],
+    A[g+8][t+4]}, b = {B[t][g], B[t+4][g]}; returns d = {D[g][2t],
+    D[g][2t+1], D[g+8][2t], D[g+8][2t+1]} for each lane."""
+    A = np.zeros((16, 8))
+    Bm = np.zeros((8, 8))
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = a_regs[lane]
+        Bm[t, g], Bm[t + 4, g] = b_regs[lane]
+    D = A @ Bm
+    return [(D[g, 2 * t], D[g, 2 * t + 1], D[g + 8, 2 * t], D[g + 8, 2 * t + 1])
+            for g, t in (divmod(lane, 4) for lane in range(32))]
+
+
+def test_fp32_kernel_fragments_compute_qk_and_pv():
+    """The fp32 kernel's register mapping, emulated for one warp, 16 rows,
+    one 8-key slice and one 8-dim slice: S = Q K^T reads Q's A fragment
+    and K's B fragment as the kernel indexes shared memory (each lane's two
+    dims adjacent, the same permutation on both sides); P's A fragment
+    is the S accumulator itself, column t read as key 2t and column t + 4
+    as key 2t + 1, and V's B fragment is read in that key order, which
+    gives P V exactly.  Reading V in natural order with the same P
+    registers does not."""
+    rng = np.random.default_rng(0)
+    Q = rng.integers(-8, 8, (16, 8)).astype(float)   # rows x dims
+    K = rng.integers(-8, 8, (8, 8)).astype(float)    # keys x dims
+    V = rng.integers(-8, 8, (8, 8)).astype(float)    # keys x dims
+    lanes = [divmod(lane, 4) for lane in range(32)]
+    # S: fragment column t is dim 2t, column t + 4 dim 2t + 1 (one float2 a
+    # lane): a = Q[g][2t], Q[g+8][2t], Q[g][2t+1], Q[g+8][2t+1];
+    # b = K[g][2t], K[g][2t+1]
+    s_regs = _mma_m16n8k8(
+        [(Q[g, 2 * t], Q[g + 8, 2 * t], Q[g, 2 * t + 1], Q[g + 8, 2 * t + 1]) for g, t in lanes],
+        [(K[g, 2 * t], K[g, 2 * t + 1]) for g, t in lanes])
+    S = Q @ K.T
+    for (g, t), d in zip(lanes, s_regs):
+        assert d == (S[g, 2 * t], S[g, 2 * t + 1], S[g + 8, 2 * t], S[g + 8, 2 * t + 1])
+    # P V: a = {c0, c2, c1, c3} of the S accumulator, b = V[2t][g], V[2t+1][g]
+    P = S
+    a_p = [(d[0], d[2], d[1], d[3]) for d in s_regs]
+    o_regs = _mma_m16n8k8(a_p, [(V[2 * t, g], V[2 * t + 1, g]) for g, t in lanes])
+    O = P @ V
+    for (g, t), d in zip(lanes, o_regs):
+        assert d == (O[g, 2 * t], O[g, 2 * t + 1], O[g + 8, 2 * t], O[g + 8, 2 * t + 1])
+    wrong = _mma_m16n8k8(a_p, [(V[t, g], V[t + 4, g]) for g, t in lanes])
+    assert wrong != o_regs

@@ -24,7 +24,7 @@ from repro_torch.kernels.binary_ip import kernel as bip_kernel
 from repro_torch.kernels.binary_ip.ref import binary_ip_ref, estimate_dist2_ref
 from repro_torch.kernels.int4_dist import int4_dist2
 from repro_torch.kernels.int4_dist import kernel as i4_kernel
-from repro_torch.kernels.int4_dist.ref import int4_dist2_ref
+from repro_torch.kernels.int4_dist.ref import int4_dist2_ref, unpack_nibbles
 
 BIP_SHAPES = [(1, 1, 8), (4, 10, 64), (128, 256, 128), (33, 777, 256),
               (5, 64, 1024), (8, 256, 960)]
@@ -147,6 +147,42 @@ def test_id_gather_equals_gathered_rows():
                        int4_dist2(qt, et[it], lt[it], st[it]))
 
 
+def _int4_algebraic(q, codes, lo, step):
+    """The CUDA int4_dist kernel's arithmetic in plain torch: no dequantised
+    row, but <q, c step + lo> = step <q, c> + lo sum(q) and ||x||^2 =
+    step^2 sum(c^2) + 2 step lo sum(c) + d lo^2, with c the nibbles."""
+    d = q.shape[1]
+    c = unpack_nibbles(codes, d)
+    ip = step[None, :] * (q @ c.T) + lo[None, :] * q.sum(1, keepdim=True)
+    xn = step**2 * (c * c).sum(1) + 2 * step * lo * c.sum(1) + d * lo**2
+    return (q * q).sum(1, keepdim=True) - 2 * ip + xn[None, :]
+
+
+@pytest.mark.parametrize("B,N,d", I4_SHAPES)
+def test_int4_algebraic_dequant_matches_plain_and_jax(B, N, d, jref):
+    q, codes, lo, step = _i4_inputs(B, N, d, seed=3 * B + N)
+    got = _int4_algebraic(*_t(q, codes, lo, step)).numpy()
+    np.testing.assert_allclose(got, int4_dist2_ref(*_t(q, codes, lo, step)).numpy(),
+                               rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(got, np.asarray(jref["i4"](q, codes, lo, step)),
+                               rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(got, np.asarray(jref["i4_ref"](q, codes, lo, step)),
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_int4_algebraic_dequant_on_a_quantized_index(small_ds, small_qb, jref):
+    """The same form on a RabitQuantizer index's level-2 codes, 8 rotated
+    queries x 256 gathered ids, against the plain version and the JAX op."""
+    qb = small_qb
+    qr = ((small_ds.queries[:8] - qb.centroid) @ qb.rotation.T).astype(np.float32)
+    ids = np.random.default_rng(3).integers(0, qb.ext_codes.shape[0], 256)
+    args = (qr, qb.ext_codes[ids], qb.ext_lo[ids].astype(np.float32),
+            qb.ext_step[ids].astype(np.float32))
+    got = _int4_algebraic(*_t(*args)).numpy()
+    np.testing.assert_allclose(got, int4_dist2_ref(*_t(*args)).numpy(), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(got, np.asarray(jref["i4"](*args)), rtol=1e-4, atol=1e-3)
+
+
 # ------------------------------------------------- plain vs the host quantizer
 
 
@@ -257,3 +293,60 @@ def test_kernels_flag_out_of_range_ids(cuda):
         assert bad[:, [1, 2]].all() and not bad[:, [0, 3]].any()
     with pytest.raises(ValueError):
         binary_ip(qt, ct.cpu(), None)
+
+
+# the search path's int4_dist edges: B around the kernel's query groups (1,
+# 2-3, 8), N around its row groups, d from one 4-byte chunk a row to 30
+# 16-byte chunks; ids into a SIFT1M-sized table or into an HBM slot mirror
+I4_CARD_B, I4_CARD_N, I4_CARD_D = (1, 3, 8), (1, 7, 31, 33, 255, 257), (8, 64, 128, 960)
+I4_TABLES = {"1M rows": 1_000_000, "hbm slots": 4096}
+
+
+@pytest.fixture(scope="module")
+def i4_tables():
+    """Per (table, d): codes, lo, step made on the card from a seed, once."""
+    made = {}
+
+    def get(table, d, dev):
+        if (table, d) not in made:
+            T = I4_TABLES[table]
+            gen = torch.Generator(device=dev).manual_seed(d)
+            made[table, d] = (
+                torch.randint(0, 256, (T, d // 2), generator=gen, device=dev, dtype=torch.uint8),
+                torch.rand(T, generator=gen, device=dev) - 2.0,
+                torch.rand(T, generator=gen, device=dev) * 0.2 + 0.1)
+        return made[table, d]
+
+    return get
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", sorted(I4_TABLES))
+@pytest.mark.parametrize("d", I4_CARD_D)
+@pytest.mark.parametrize("N", I4_CARD_N)
+@pytest.mark.parametrize("B", I4_CARD_B)
+def test_int4_kernel_edges_match_plain(B, N, d, table, cuda, i4_tables):
+    ct, lt, st = i4_tables(table, d, cuda)
+    rng = np.random.default_rng(B * N + d)
+    qt = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(rng.integers(0, ct.shape[0], N)).to(cuda)
+    n0 = i4_kernel.launches
+    got = int4_dist2(qt, ct, lt, st, ids)
+    assert i4_kernel.launches == n0 + 1 and got.shape == (B, N)
+    want = int4_dist2_ref(qt, ct[ids], lt[ids], st[ids])
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", I4_CARD_D)
+def test_int4_kernel_flags_out_of_range_ids_at_every_width(d, cuda, i4_tables):
+    ct, lt, st = i4_tables("hbm slots", d, cuda)
+    T = ct.shape[0]
+    qt = torch.from_numpy(np.random.default_rng(d).standard_normal((8, d)).astype(np.float32))
+    ids = torch.tensor([0, T, -1, 3, T - 1, 1 << 40, 7], device=cuda)
+    out = int4_dist2(qt.to(cuda), ct, lt, st, ids).cpu()
+    bad = torch.isnan(out).numpy()
+    assert bad[:, [1, 2, 5]].all() and not bad[:, [0, 3, 4, 6]].any()
+    good = ids[[0, 3, 4, 6]]
+    want = int4_dist2_ref(qt.to(cuda), ct[good], lt[good], st[good]).cpu()
+    np.testing.assert_allclose(out[:, [0, 3, 4, 6]].numpy(), want.numpy(), rtol=1e-4, atol=1e-3)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's attention rows (phase 3) for one checkout, as JSON.
+"""chip_smoke.py's phase 3 rows for one checkout, as JSON.
 
     python3 tools/attention_rows.py CHECKOUT OUT.json
 
-Builds CHECKOUT's kernels, runs its ``chip_smoke.phase_attention`` on the
-CUDA card and writes the rows, the card line and the build seconds to
+Builds CHECKOUT's kernels, runs its ``chip_smoke.phase_kernels`` (the
+distance rows: binary_ip, int4_dist) and ``chip_smoke.phase_attention`` on
+the CUDA card and writes the rows, the card line and the build seconds to
 OUT.json.  To compare two commits on one card, unpack the other commit into
 an ignored directory (``git archive``) and run both in one call, in turns:
 parent, change, change, parent.
@@ -32,6 +33,8 @@ import chip_smoke  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 card = chip_smoke.card_line()
+distance = chip_smoke.phase_kernels(torch.device("cuda"))
 rows, _ = chip_smoke.phase_attention(torch.device("cuda"), card)
 with open(out_path, "w") as f:
-    json.dump(dict(checkout=checkout, card=card, build_s=build_s, rows=rows), f, indent=1)
+    json.dump(dict(checkout=checkout, card=card, build_s=build_s, rows=rows, distance=distance),
+              f, indent=1)
