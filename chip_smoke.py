@@ -8,9 +8,12 @@ Phases (each one that fails ends the run with a non-zero exit):
   2. build    compile src/repro_torch/csrc/*.cu for sm_90a (one nvcc each, in
               parallel) into build/kernels/librepro_torch_kernels.so
   3. kernels  each CUDA kernel against its plain PyTorch version on the card:
-              binary_ip / int4_dist at the search path's shapes and at SIFT1M
-              scale; paged_attention at Yi-6B widths (B x context sweep, bf16
-              and fp32 pages); flash_attention at Yi-6B prefill, a gemma3-1b
+              binary_ip (the sign product and the fused RaBitQ estimate, fp32
+              and bf16 queries) / int4_dist at the search path's shapes and at
+              SIFT1M scale, sweeps of a 1M table on the tensor-core path
+              (which must show HMMA in cuobjdump -sass); paged_attention at
+              Yi-6B widths (B x context sweep, bf16 and fp32 pages);
+              flash_attention at Yi-6B prefill, a gemma3-1b
               local layer and whisper-small's encoder, bf16 and fp32 inputs
               (fp32 rows bounded at the TF32 peak, the fp32 peak beside it;
               the fp32 and bf16 kernels must show tensor-core instructions
@@ -19,12 +22,14 @@ Phases (each one that fails ends the run with a non-zero exit):
               and the least time the card could take (the bound)
   4. tables   a 1M x 128 index registered once in the torch distance engine;
               fused estimate / refine / beam-step calls held against the NumPy
-              batch engine on the same ids
+              batch engine on the same ids; a profiled estimate_many call must
+              run exactly one CUDA kernel (the fused estimate)
   5. search   VeloANN's search path end to end (build_system("velo") + run) on
               a 10 000 x 128 index, torch engine on the card with fuse on and
               device_beam off/on, against the batch engine on the same index;
               the kernels' launch counters are set to 0 before each torch run
-              and read after it
+              and read after it; a profiled 50-query run gives the device's
+              busy share, its top kernels and its launch and copy totals
   6. kv serve the paged KV serving plane end to end, twice: a PagedKVPool of
               bf16 pages at Yi-6B widths on the card, a CacheAwareScheduler
               over 48 seeded requests, one paged_attention launch per decode
@@ -104,7 +109,7 @@ YI = dict(H=32, KVH=4, Dh=128, page=16)
 # NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), where PERF.md recorded
 # one, by (kernel, shape, input dtype): the bf16 attention rows and paged
 # fp32 before the tensor-core redesign of those kernels, fp32 flash and
-# int4_dist before theirs
+# int4_dist before theirs, binary_ip's sign product before its own
 EARLIER_MS = {
     ("paged_attention", "B=8 ctx=2048", "bfloat16"): 0.391,
     ("paged_attention", "B=32 ctx=4096", "bfloat16"): 0.783,
@@ -115,29 +120,34 @@ EARLIER_MS = {
     ("flash_attention", "yi-6b prefill S=512", "float32"): 0.1715,
     ("int4_dist", "B=8 N=256 d=128 table=1000000 gathered", "float32"): 0.0581,
     ("int4_dist", "B=8 N=1000000 d=128 table=1000000 sweep", "float32"): 0.1110,
+    ("binary_ip", "B=8 N=256 d=128 table=1000000 gathered", "float32"): 0.0371,
+    ("binary_ip", "B=8 N=1000000 d=128 table=1000000 sweep", "float32"): 0.0856,
 }
 # engine vs the NumPy batch engine, whose estimator epilogue is float64
 HOST_TOL = dict(rtol=2e-3, atol=2e-3)
 # every kernel: its source, the TPU kernel it replaces, its launch counter,
-# the phase whose run gives its reported launches, and the row (shape, input
-# dtype) whose times the report carries
-SIFT1M_FLUSH = ("B=8 N=256 d=128 table=1000000 gathered", "float32")
+# the phase whose run gives its reported launches, and the fields of the row
+# whose times the report carries (binary_ip's: the fused estimate, which is
+# what the search path launches)
+SIFT1M_FLUSH = dict(shape="B=8 N=256 d=128 table=1000000 gathered", dtype="float32")
 KERNELS = {
     "binary_ip": dict(source="src/repro_torch/csrc/binary_ip.cu",
                       replaces="src/repro/kernels/binary_ip/kernel.py:28",
-                      counter=bip_kernel, path="search", main=SIFT1M_FLUSH),
+                      counter=bip_kernel, path="search",
+                      main=dict(SIFT1M_FLUSH, entry="estimate_dist2")),
     "int4_dist": dict(source="src/repro_torch/csrc/int4_dist.cu",
                       replaces="src/repro/kernels/int4_dist/kernel.py:27",
                       counter=i4_kernel, path="search", main=SIFT1M_FLUSH),
     # a decode step of 8 sequences x 2048 tokens, bf16 pages
     "paged_attention": dict(source="src/repro_torch/csrc/paged_attention.cu",
                             replaces="src/repro/kernels/paged_attention/kernel.py:29",
-                            counter=pa_kernel, path="kv serve", main=("B=8 ctx=2048", "bfloat16")),
+                            counter=pa_kernel, path="kv serve",
+                            main=dict(shape="B=8 ctx=2048", dtype="bfloat16")),
     # no system path calls it: its launches are phase 3's
     "flash_attention": dict(source="src/repro_torch/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention/kernel.py:33",
                             counter=fa_kernel, path="attention kernels",
-                            main=("yi-6b prefill S=2048", "bfloat16")),
+                            main=dict(shape="yi-6b prefill S=2048", dtype="bfloat16")),
 }
 # kv serve: the pool cut so that 16 live requests of ~1 280 tokens (~1 300
 # pages) oversubscribe it, and one layer's share of an 80 GB card for Yi-6B
@@ -175,15 +185,15 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-ATTENTION_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_tf32_kernel",
-                     "paged_attention_mma_kernel", "paged_attention_f32_kernel")
+SASS_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_tf32_kernel",
+                "paged_attention_mma_kernel", "paged_attention_f32_kernel", "binary_mma_kernel")
 
 
 def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
     """Tensor-core instructions (Hopper's HGMMA, mma.sync's HMMA, and of
-    those the ones on TF32 operands) in each attention kernel of the built
-    library, from cuobjdump -sass beside nvcc; empty when cuobjdump is
-    missing."""
+    those the ones on TF32 operands) in each attention kernel family and in
+    binary_ip's tensor-core path, from cuobjdump -sass beside nvcc; empty
+    when cuobjdump is missing."""
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return {}
@@ -193,7 +203,7 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            name = next((k for k in ATTENTION_KERNELS if k in fn), None)
+            name = next((k for k in SASS_KERNELS if k in fn), None)
             if name is not None:
                 counts.setdefault(name, {"HGMMA": 0, "HMMA": 0, "TF32": 0})
         elif name is not None:
@@ -260,6 +270,26 @@ def bound_ms(nbytes: int, flops: int, flop_per_s: float = FP32_FLOP_PER_S) -> tu
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def profiled_kernels(fn, attempts: int = 3) -> dict[str, int]:
+    """The CUDA kernels (copies and fills left out) that the profiler records
+    in one call of ``fn``: name -> count.  The profiler sometimes loses a
+    record, so an empty reading is taken again, up to ``attempts`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    kernels: dict[str, int] = {}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages() if e.self_device_time_total > 0
+                   and not e.key.startswith(("Memcpy", "Memset"))}
+        if kernels:
+            break
+    return kernels
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -267,34 +297,60 @@ def _shape(B: int, N: int, d: int, T: int, gather: bool) -> str:
     return f"B={B} N={N} d={d} table={T} {'gathered' if gather else 'sweep'}"
 
 
-def check_binary_ip(dev, gen, B, N, d, T, gather, q_dtype=torch.float32) -> dict:
+def check_binary_ip(dev, gen, B, N, d, T, gather, q_dtype=torch.float32,
+                    entry="binary_ip") -> dict:
+    """One binary_ip row: the sign product (``entry`` "binary_ip") or the
+    fused RaBitQ estimate ("estimate_dist2") over N rows of a T-row table,
+    gathered by id or swept.  The bound counts the bytes once and the useful
+    operations at the peak of the units the call's path multiplies on (the
+    tensor cores' bf16 peak for a sweep, the CUDA cores' fp32 peak for the
+    lanes path; a sweep also gets the fp32-peak bound, for continuity).  No
+    single PyTorch call computes the estimate: its row's library_ms is None,
+    and matmul_ms times torch.matmul on the same rows unpacked, the sign
+    product alone, as a labelled yardstick."""
     q = torch.randn(B, d, generator=gen, device=dev).to(q_dtype)
     codes = torch.randint(0, 256, (T, d // 8), generator=gen, device=dev, dtype=torch.uint8)
     ids = torch.randint(0, T, (N,), generator=gen, device=dev) if gather else None
-    got = bip_ops.binary_ip(q, codes, ids)
-    rows = codes if ids is None else codes[ids]
-    want = bip_ref.binary_ip_ref(q, rows)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    require(torch.allclose(got, want, **TOL["binary_ip"]),
-            f"binary_ip disagrees with its plain version at B={B} N={N} d={d}: {err}")
-    signs = bip_ref.unpack_signs(rows, d)
-    qf = q.float()
+    est = entry == "estimate_dist2"
+    norms = torch.rand(T, generator=gen, device=dev) * 2 + 0.25
+    ipb = torch.rand(T, generator=gen, device=dev) * 0.9 + 0.05
+
+    def kernel():
+        if est:
+            return bip_ops.estimate_dist2(q, codes, norms, ipb, ids)
+        return bip_ops.binary_ip(q, codes, ids)
 
     def plain():
-        return bip_ref.binary_ip_ref(q, codes if ids is None else codes[ids])
+        rows = (codes, norms, ipb) if ids is None else (codes[ids], norms[ids], ipb[ids])
+        if est:
+            return bip_ref.estimate_dist2_ref(q, *rows)
+        return bip_ref.binary_ip_ref(q, rows[0])
 
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    shape = _shape(B, N, d, T, gather)
+    require(torch.allclose(got, want, **TOL["binary_ip"]),
+            f"binary_ip {entry} disagrees with its plain version at {shape} {q_dtype}: {err}")
+    signs = bip_ref.unpack_signs(codes if ids is None else codes[ids], d)
+    qf = q.float()
+    tc = bip_kernel.tensor_core_path(B, N, d, codes.data_ptr())
     nbytes = q.numel() * q.element_size() + N * d // 8 + (N * 8 if gather else 0) + B * N * 4
-    b_ms, b_by = bound_ms(nbytes, 2 * B * N * d)
+    flops = 2 * B * N * d
+    if est:  # norms and ip_bar of each row; ||q||, the scale and the epilogue
+        nbytes += 2 * N * 4
+        flops += 2 * B * d + 11 * B * N
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S if tc else FP32_FLOP_PER_S)
+    matmul_ms = time_ms(lambda: torch.matmul(qf, signs.T))
     return dict(
-        kernel="binary_ip", shape=_shape(B, N, d, T, gather), B=B, N=N, d=d, table=T,
-        dtype=str(q_dtype)[6:], max_abs_err=err,
-        ms=time_ms(lambda: bip_ops.binary_ip(q, codes, ids)),
-        plain_ms=time_ms(plain),
-        library_ms=time_ms(lambda: torch.matmul(qf, signs.T)),
-        device_us=device_us(lambda: bip_ops.binary_ip(q, codes, ids)),
-        plain_device_us=device_us(plain),
-        bound_ms=b_ms, bound_by=b_by,
+        kernel="binary_ip", entry=entry, path="tensor cores" if tc else "lanes", shape=shape,
+        B=B, N=N, d=d, table=T, dtype=str(q_dtype)[6:], max_abs_err=err,
+        ms=time_ms(kernel), plain_ms=time_ms(plain),
+        library_ms=None if est else matmul_ms, matmul_ms=matmul_ms,
+        device_us=device_us(kernel), plain_device_us=device_us(plain),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=flops,
+        bound_fp32_ms=bound_ms(nbytes, flops)[0] if tc else None,
+        earlier_ms=None if est else EARLIER_MS.get(("binary_ip", shape, str(q_dtype)[6:])),
     )
 
 
@@ -320,8 +376,8 @@ def check_int4_dist(dev, gen, B, N, d, T, gather) -> dict:
     nbytes = B * d * 4 + N * (d // 2 + 8) + (N * 8 if gather else 0) + B * N * 4
     b_ms, b_by = bound_ms(nbytes, 2 * B * N * d + 4 * N * d)
     return dict(
-        kernel="int4_dist", shape=_shape(B, N, d, T, gather), B=B, N=N, d=d, table=T,
-        dtype="float32", max_abs_err=err,
+        kernel="int4_dist", entry="int4_dist2", path="lanes", shape=_shape(B, N, d, T, gather),
+        B=B, N=N, d=d, table=T, dtype="float32", max_abs_err=err,
         ms=time_ms(lambda: i4_ops.int4_dist2(q, codes, lo, step, ids)),
         plain_ms=time_ms(plain),
         library_ms=time_ms(lambda: torch.matmul(q, x.T)),
@@ -348,17 +404,36 @@ def phase_kernels(dev) -> list[dict]:
     for B in (1, 8):  # SIFT1M scale: a 1M x 128 resident table, 256 gathered rows
         rows.append(check_binary_ip(dev, gen, B, 256, 128, 1_000_000, gather=True))
         rows.append(check_int4_dist(dev, gen, B, 256, 128, 1_000_000, gather=True))
+    # the fused estimate at the search path's flush (ids into 1M rows)
+    for d in (128, 960):
+        for dtype in (torch.float32, torch.bfloat16):
+            rows.append(check_binary_ip(dev, gen, 8, 256, d, 1_000_000, True, dtype,
+                                        "estimate_dist2"))
+    # sweeps of the 1M table (the tensor-core path)
     rows.append(check_binary_ip(dev, gen, 8, 1_000_000, 128, 1_000_000, gather=False))
+    rows.append(check_binary_ip(dev, gen, 8, 1_000_000, 128, 1_000_000, False, torch.bfloat16))
+    rows.append(check_binary_ip(dev, gen, 8, 1_000_000, 128, 1_000_000, False, torch.float32,
+                                "estimate_dist2"))
     rows.append(check_int4_dist(dev, gen, 8, 1_000_000, 128, 1_000_000, gather=False))
-    print(f"{'kernel':10} {'B':>2} {'N':>8} {'d':>4} {'table':>8} {'q':>8} "
-          f"{'max_err':>9} {'ms':>9} {'plain_ms':>9} {'lib_ms':>9} {'bound_ms':>9} "
+    print(f"{'kernel':10} {'entry':14} {'path':12} {'B':>2} {'N':>8} {'d':>4} {'table':>8} "
+          f"{'q':>8} {'max_err':>9} {'ms':>9} {'plain_ms':>9} {'lib_ms':>10} {'bound_ms':>9} "
           f"{'dev_us':>8} {'pl_dev_us':>9} {'prev_ms':>8} by")
     for r in rows:
         earlier = "—" if r.get("earlier_ms") is None else f"{r['earlier_ms']:.4f}"
-        print(f"{r['kernel']:10} {r['B']:>2} {r['N']:>8} {r['d']:>4} {r['table']:>8} "
-              f"{r['dtype']:>8} {r['max_abs_err']:9.2e} {r['ms']:9.5f} {r['plain_ms']:9.5f} "
-              f"{r['library_ms']:9.5f} {r['bound_ms']:9.6f} {_us(r['device_us']):>8} "
-              f"{_us(r['plain_device_us']):>9} {earlier:>8} {r['bound_by']}")
+        lib = (f"{r['library_ms']:10.5f}" if r["library_ms"] is not None
+               else f"{r['matmul_ms']:9.5f}*")
+        print(f"{r['kernel']:10} {r['entry']:14} {r['path']:12} {r['B']:>2} {r['N']:>8} "
+              f"{r['d']:>4} {r['table']:>8} {r['dtype']:>8} {r['max_abs_err']:9.2e} "
+              f"{r['ms']:9.5f} {r['plain_ms']:9.5f} {lib} {r['bound_ms']:9.6f} "
+              f"{_us(r['device_us']):>8} {_us(r['plain_device_us']):>9} {earlier:>8} "
+              f"{r['bound_by']}")
+    print("  * no PyTorch call computes the estimate: torch.matmul of the sign product "
+          "alone, as a yardstick")
+    for r in rows:
+        if r.get("bound_fp32_ms") is not None:
+            print(f"  binary_ip {r['entry']} {r['shape']} {r['dtype']}: bound {r['bound_ms']:.6f} "
+                  f"ms ({r['bound_by']}) at the bf16 tensor-core peak, "
+                  f"{r['bound_fp32_ms']:.6f} ms at the fp32 (CUDA-core) peak")
     return rows
 
 
@@ -562,6 +637,9 @@ def phase_tables(rng, n: int = 1_000_000, d: int = 128) -> dict:
             require(np.allclose(g, w, **HOST_TOL), f"{fn} disagrees with the batch engine")
     est_ms = host_ms(lambda: eng.estimate_many(qb, groups))
     ref_ms = host_ms(lambda: eng.refine_ids_many(qb, groups))
+    est_kernels = profiled_kernels(lambda: eng.estimate_many(qb, groups))
+    require(sum(est_kernels.values()) == 1 and "binary_lanes_kernel" in next(iter(est_kernels)),
+            f"estimate_many must run exactly one CUDA kernel, the fused estimate: {est_kernels}")
 
     # a chain of fused beam steps over ids drawn from the whole table
     L = 64
@@ -594,6 +672,7 @@ def phase_tables(rng, n: int = 1_000_000, d: int = 128) -> dict:
                 "beam heaps disagree with the batch engine")
     peak = torch.cuda.max_memory_allocated()
     out = dict(fit_encode_s=fit_s, estimate_many_ms=est_ms, refine_ids_many_ms=ref_ms,
+               estimate_many_kernels=est_kernels,
                beam_step_ms=float(np.median(step_ms[1:])), beam_frontiers_equal=same / total,
                max_memory_allocated=peak, uploads=eng.stats.uploads)
     require(eng.stats.uploads == 1, "the 1M table must stay registered once")
@@ -671,9 +750,13 @@ def _busy_share(ds, graph, qb, n_queries: int = 50) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avgs = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    avgs = [e for e in avgs if e.self_device_time_total > 0]
     device_s = sum(e.self_device_time_total for e in avgs) / 1e6
+    copies = {k: sum(e.count for e in avgs if e.key.startswith(k))
+              for k in ("Memcpy HtoD", "Memcpy DtoH")}
+    launches = sum(e.count for e in avgs if not e.key.startswith(("Memcpy", "Memset")))
     return dict(queries=n_queries, wall_s=wall, device_s=device_s,
-                busy_share=device_s / wall,
+                busy_share=device_s / wall, kernel_launches=launches, copies=copies,
                 top=[[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in avgs[:8]])
 
 
@@ -796,11 +879,13 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  ptxas:", line.strip())
     sass = sass_counts(_build.BUILD_DIR / _build.LIB_NAME)
-    print("sass: tensor-core instructions per attention kernel family:", json.dumps(sass))
+    print("sass: tensor-core instructions per kernel family:", json.dumps(sass))
     require(not sass or (sass["flash_attention_wgmma_kernel"]["HGMMA"] > 0 and
                          sass["paged_attention_mma_kernel"]["HMMA"] > 0 and
-                         sass["flash_attention_tf32_kernel"]["TF32"] > 0),
-            f"the bf16 and fp32 flash and bf16 paged kernels must use the tensor cores: {sass}")
+                         sass["flash_attention_tf32_kernel"]["TF32"] > 0 and
+                         sass["binary_mma_kernel"]["HMMA"] > 0),
+            f"the bf16 and fp32 flash, bf16 paged and binary_ip sweep kernels must use the "
+            f"tensor cores: {sass}")
 
     phase_s = {}
     t0 = time.perf_counter()
@@ -827,7 +912,7 @@ def main() -> int:
     report = []
     for name, spec in KERNELS.items():
         mine = [r for r in rows + attn_rows if r["kernel"] == name]
-        main = next(r for r in mine if (r["shape"], r["dtype"]) == spec["main"])
+        main = next(r for r in mine if all(r.get(k) == v for k, v in spec["main"].items()))
         report.append(dict(
             name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],
             launches=path_launches[spec["path"]][name],

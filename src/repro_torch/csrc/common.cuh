@@ -1,14 +1,28 @@
-// Device helpers shared by the kernels: fp32 / bf16 conversion (round to
-// nearest even; bf16 -> fp32 is exact), cp.async, mbarrier, TMA and named
-// barrier wrappers, ldmatrix and mma.sync (bf16, and tf32 with the 3xTF32
-// split), and the wgmma products with their shared-memory descriptors
-// (sm_90a).
+// Helpers shared by the kernels: the SM count (host), fp32 / bf16
+// conversion (round to nearest even; bf16 -> fp32 is exact), cp.async,
+// mbarrier, TMA and named barrier wrappers, ldmatrix and mma.sync (bf16,
+// and tf32 with the 3xTF32 split), and the wgmma products with their
+// shared-memory descriptors (sm_90a).
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
+
+// the card's SM count (cached per device; 132, the H100's, if the query fails)
+inline int sm_count(int device) {
+  static int cached[64] = {};
+  if (device < 0 || device >= 64) return 132;
+  if (cached[device] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) != cudaSuccess || n <= 0)
+      n = 132;
+    cached[device] = n;
+  }
+  return cached[device];
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

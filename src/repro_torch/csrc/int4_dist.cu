@@ -45,6 +45,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 64;       // threads per block
@@ -239,18 +241,6 @@ __global__ void __launch_bounds__(kThreads) int4_dist_kernel(
     }
     cur = nxt;
   }
-}
-
-int sm_count(int device) {
-  static int cached[64] = {};
-  if (device < 0 || device >= 64) return 132;
-  if (cached[device] == 0) {
-    int n = 0;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) != cudaSuccess || n <= 0)
-      n = 132;
-    cached[device] = n;
-  }
-  return cached[device];
 }
 
 template <int BQ, int VB>

@@ -40,9 +40,12 @@ _PAGED = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64, _I, _I, _F, 
 _FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P)
 # C entry -> argtypes; every entry returns its launch's cudaError_t as int
 SIGNATURES = {
-    # q, codes, ids, out, B, N, d, n_table, device, stream
-    "binary_ip_f32": (_P, _P, _P, _P, _I, _I, _I, _I64, _I, _P),
-    "binary_ip_bf16": (_P, _P, _P, _P, _I, _I, _I, _I64, _I, _P),
+    # q, codes, ids, out, B, N, d, n_table, tensor_cores, device, stream
+    "binary_ip_f32": (_P, _P, _P, _P, _I, _I, _I, _I64, _I, _I, _P),
+    "binary_ip_bf16": (_P, _P, _P, _P, _I, _I, _I, _I64, _I, _I, _P),
+    # q, codes, norms, ip_bar, ids, out, B, N, d, n_table, tensor_cores, device, stream
+    "binary_est_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _I, _I, _P),
+    "binary_est_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _I, _I, _P),
     # q, codes, lo, step, ids, out, B, N, d, n_table, device, stream
     "int4_dist_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _I, _P),
     "paged_attention_f32": _PAGED,

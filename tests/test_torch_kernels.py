@@ -183,6 +183,192 @@ def test_int4_algebraic_dequant_on_a_quantized_index(small_ds, small_qb, jref):
     np.testing.assert_allclose(got, np.asarray(jref["i4"](*args)), rtol=1e-4, atol=1e-3)
 
 
+# ------------------- the binary_ip kernel's arithmetic, emulated on the CPU
+# csrc/binary_ip.cu's tensor-core path multiplies bf16 terms of the query by
+# +-1 signs on mma.sync.m16n8k16 in a permuted dim order, and both of its
+# paths take the product on the raw query and scale it once.  These tests
+# hold that arithmetic, written in numpy, against the plain version and the
+# JAX package.
+
+
+def _bf16_terms(x: np.ndarray, terms: int) -> list[np.ndarray]:
+    """x (float32) as ``terms`` bf16 values, held in float32: x1 = bf16(x),
+    x2 = bf16(x - x1), ... (round to nearest even, as __floats2bfloat162_rn)."""
+    out, r = [], torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    for _ in range(terms):
+        h = r.to(torch.bfloat16).to(torch.float32)
+        out.append(h.numpy())
+        r = r - h
+    return out
+
+
+def _signs(codes: np.ndarray, d: int) -> np.ndarray:
+    return np.unpackbits(codes, axis=1, bitorder="little")[:, :d].astype(np.float32) * 2 - 1
+
+
+def _tensor_core_sum(q: np.ndarray, codes: np.ndarray, terms: int) -> np.ndarray:
+    """The tensor-core path's sums in float32: per 128 dims, the first
+    term's products in one accumulator and the others' in a second, 16 dims
+    (one k-step) at a time; the groups' two sums added to a float32 total."""
+    d = q.shape[1]
+    s = _signs(codes, d)
+    parts = _bf16_terms(q, terms)
+    tot = np.zeros((q.shape[0], codes.shape[0]), np.float32)
+    for c0 in range(0, d, 128):
+        hi, lo = np.zeros_like(tot), np.zeros_like(tot)
+        for k0 in range(c0, min(c0 + 128, d), 16):
+            k = slice(k0, k0 + 16)
+            hi += parts[0][:, k] @ s[:, k].T
+            for p in parts[1:]:
+                lo += p[:, k] @ s[:, k].T
+        tot += hi + lo
+    return tot
+
+
+_EDGE_VALUES = np.array(
+    [0.0, -0.0, 1.0, -1.0, 1 - 2**-24, 1 + 2**-23, -(2 - 2**-23), 1 + 2**-8, 1 + 3 * 2**-8,
+     2**-110, -(2 - 2**-23) * 2**-110, 3.38e38, -3.38e38, 1e-30, 7e30, np.pi], dtype=np.float32)
+
+
+@pytest.mark.parametrize("d", [8, 128, 960])
+def test_three_bf16_terms_reconstruct_fp32_queries(d):
+    """q = q1 + q2 + q3 exactly (each term takes the next 8 significant bits
+    of 24), from 2^-110 up to bf16's largest finite value; so the tensor
+    cores' products of the terms with +-1 are exact and three terms summed
+    in float32 meet the fp32 bar of the plain version.  One bf16 term (the
+    query rounded to bf16) misses it: that is why fp32 queries take three."""
+    rng = np.random.default_rng(d)
+    wide = (rng.choice([-1.0, 1.0], 4096) * rng.uniform(1, 2, 4096)
+            * 2.0 ** rng.integers(-110, 127, 4096)).astype(np.float32)
+    for x in (wide, _EDGE_VALUES):
+        t1, t2, t3 = _bf16_terms(x, 3)
+        np.testing.assert_array_equal(t1.astype(np.float64) + t2 + t3, x.astype(np.float64))
+        for t in (t1, t2, t3):  # each term is a bf16 value
+            np.testing.assert_array_equal(t, _bf16_terms(t, 1)[0])
+    q, codes = _bip_inputs(8, 300, d, seed=d + 1)
+    want = binary_ip_ref(*_t(q, codes)).numpy()
+    np.testing.assert_allclose(_tensor_core_sum(q, codes, 3), want, rtol=1e-5, atol=1e-4)
+    assert not np.allclose(_tensor_core_sum(q, codes, 1), want, rtol=1e-5, atol=1e-4)
+
+
+def _sign_pair(w: int, p: int) -> int:
+    """csrc/binary_ip.cu's sign_pair: bits p and p + 16 of a code word as two
+    bf16 signs (+1 where set), bit p in the low half, as 0xBF80BF80 - (w &
+    bits) * 2^(15 - p) modulo 2^32."""
+    return (0xBF80BF80 + (w & (0x00010001 << p)) * ((-(1 << (15 - p))) & 0xFFFFFFFF)) \
+        & 0xFFFFFFFF
+
+
+def _bf16_pair(u: int) -> tuple[float, float]:
+    halves = np.array([(u & 0xFFFF) << 16, (u >> 16) << 16], dtype=np.uint32)
+    lo, hi = halves.view(np.float32)
+    return float(lo), float(hi)
+
+
+def _pack_pair(lo: float, hi: float) -> int:
+    """Two bf16-exact floats as one 32-bit register (lo in the low half)."""
+    b = np.array([lo, hi], dtype=np.float32).view(np.uint32) >> 16
+    return int(b[0]) | int(b[1]) << 16
+
+
+def _fragments_product(q: np.ndarray, codes: np.ndarray) -> np.ndarray:
+    """The tensor-core path's data movement, lane by lane: lane (g, t) reads
+    4-byte word t of rows g and g + 8 of a 16-row m-tile per 128 dims (a
+    word past the row reads as 0), turns bits (2s, 2s + 16) and (2s + 1,
+    2s + 17) into its A registers of k-step s, and takes Q's B registers 2s,
+    2s + 1 from the layout the block writes (register r of lane (g, t) is
+    the pair q_g[128c + 32t + r], q_g[128c + 32t + r + 16]).  The registers
+    are placed where the PTX m16n8k16 fragment layout puts them and
+    multiplied in float64.  q (<= 8, d) holds bf16-exact values; returns
+    (B, N)."""
+    B, d = q.shape
+    N = codes.shape[0]
+    words = codes.view("<u4").reshape(N, d // 32)
+    groups = (d // 32 + 3) // 4
+    qp = np.zeros((8, groups * 128), np.float32)
+    qp[:B, :d] = q
+    bfr = np.zeros((groups, 16, 32), dtype=np.int64)
+    for c in range(groups):
+        for r in range(16):
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                k = 128 * c + 32 * t + r
+                bfr[c, r, lane] = _pack_pair(qp[g, k], qp[g, k + 16])
+    n_pad = -(-N // 16) * 16
+    out = np.zeros((n_pad, 8))
+    for m0 in range(0, n_pad, 16):
+        for c in range(groups):
+            for s in range(8):
+                A, Bm = np.zeros((16, 16)), np.zeros((16, 8))
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+
+                    def word(row, c=c, t=t):
+                        ok = row < N and 4 * c + t < words.shape[1]
+                        return int(words[row, 4 * c + t]) if ok else 0
+
+                    w0, w1 = word(m0 + g), word(m0 + g + 8)
+                    A[g, 2 * t: 2 * t + 2] = _bf16_pair(_sign_pair(w0, 2 * s))
+                    A[g + 8, 2 * t: 2 * t + 2] = _bf16_pair(_sign_pair(w1, 2 * s))
+                    A[g, 2 * t + 8: 2 * t + 10] = _bf16_pair(_sign_pair(w0, 2 * s + 1))
+                    A[g + 8, 2 * t + 8: 2 * t + 10] = _bf16_pair(_sign_pair(w1, 2 * s + 1))
+                    Bm[2 * t: 2 * t + 2, g] = _bf16_pair(int(bfr[c, 2 * s, lane]))
+                    Bm[2 * t + 8: 2 * t + 10, g] = _bf16_pair(int(bfr[c, 2 * s + 1, lane]))
+                out[m0: m0 + 16] += A @ Bm
+    return out[:N, :B].T
+
+
+@pytest.mark.parametrize("B,N,d", [(8, 48, 128), (3, 20, 32), (5, 17, 960)])
+def test_sign_fragment_order_computes_the_product(B, N, d):
+    """The permuted dim order of the tensor-core path (signs and queries
+    alike) reassembles into q @ signs.T exactly, with partial 128-dim groups
+    (d = 32, 960), a ragged m-tile and fewer than 8 queries."""
+    rng = np.random.default_rng(N + d)
+    q = rng.integers(-64, 65, (B, d)).astype(np.float32) / 8  # bf16-exact
+    codes = rng.integers(0, 256, (N, d // 8)).astype(np.uint8)
+    want = q.astype(np.float64) @ _signs(codes, d).T.astype(np.float64)
+    np.testing.assert_array_equal(_fragments_product(q, codes), want)
+
+
+def _fused_estimate(q: np.ndarray, codes: np.ndarray, norms: np.ndarray,
+                    ip_bar: np.ndarray) -> np.ndarray:
+    """The kernel's estimate algebra in float32: the product on the raw
+    query, scaled once by 1 / (max(||q||, 1e-12) sqrt(d)), the clamp and the
+    clip as comparisons, then qn^2 + x^2 - 2 qn x cos."""
+    d = q.shape[1]
+    ip = q @ _signs(codes, d).T
+    qn = np.sqrt((q * q).sum(axis=1, dtype=np.float32))[:, None]
+    sc = np.float32(1) / (np.where(qn < 1e-12, np.float32(1e-12), qn) * np.float32(np.sqrt(d)))
+    ibc = np.where(ip_bar < 1e-6, np.float32(1e-6), ip_bar)[None, :]
+    c = (ip * sc) / ibc
+    c = np.where(c < -1, np.float32(-1), np.where(c > 1, np.float32(1), c))
+    return (qn * qn + norms[None, :] ** 2 - 2 * qn * norms[None, :] * c).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,N,d", [(8, 256, 128), (3, 31, 8), (8, 64, 960)])
+def test_fused_estimator_algebra_matches_plain_and_jax(B, N, d, jref):
+    """Including a zero query (the estimate is then x^2), rows whose ip_bar
+    is below the 1e-6 clamp, and rows whose cosine estimate clips."""
+    rng = np.random.default_rng(B * N + d)
+    q, codes = _bip_inputs(B, N, d, seed=N + d)
+    q[1] = 0.0
+    norms = rng.uniform(0.5, 2.0, N).astype(np.float32)
+    ip_bar = rng.uniform(0.6, 0.9, N).astype(np.float32)
+    ip_bar[:3] = [0.0, 1e-9, 5e-7]
+    ip_bar[3:6] = 1e-3
+    got = _fused_estimate(q, codes, norms, ip_bar)
+    np.testing.assert_allclose(got, estimate_dist2_ref(*_t(q, codes, norms, ip_bar)).numpy(),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got, np.asarray(jref["est"](q, codes, norms, ip_bar)),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got, np.asarray(jref["est_ref"](q, codes, norms, ip_bar)),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got[1], norms**2, rtol=1e-6)  # a zero query: x^2
+    qn = np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    cos = (q / qn) @ _signs(codes, d).T / np.sqrt(d) / np.maximum(ip_bar, 1e-6)
+    assert (np.abs(cos[[0, 2], :6]) > 1).sum() >= 10  # the clip acts
+
+
 # ------------------------------------------------- plain vs the host quantizer
 
 
@@ -224,8 +410,25 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         bip_kernel.binary_ip_cuda(*_t(q, codes))
     with pytest.raises(ValueError):
+        bip_kernel.estimate_dist2_cuda(*_t(q, codes, lo, step))
+    with pytest.raises(ValueError):
         i4_kernel.int4_dist_cuda(*_t(q, ext, lo, step))
     assert (bip_kernel.launches, i4_kernel.launches) == (b0, i0)
+
+
+def test_tensor_core_path_rule():
+    """Calls of two queries or more over TENSOR_CORE_MIN_ROWS rows or more
+    take the tensor-core path where d % 32 == 0 and the codes are 4-byte
+    aligned; asking for it where they are not raises."""
+    big = bip_kernel.TENSOR_CORE_MIN_ROWS
+    rule = bip_kernel.tensor_core_path
+    assert rule(8, big, 128, 0) and rule(2, big, 960, 4096)
+    assert not rule(8, big - 1, 128, 0) and not rule(1, 1_000_000, 128, 0)
+    assert not rule(8, big, 8, 0) and not rule(8, big, 128, 2)
+    assert rule(1, 1, 64, 0, True) and not rule(8, big, 128, 0, False)
+    for d, ptr in ((8, 0), (128, 2)):
+        with pytest.raises(ValueError):
+            rule(8, 1, d, ptr, True)
 
 
 # ----------------------------------------------- the CUDA kernels (card only)
@@ -284,15 +487,23 @@ def test_int4_kernel_matches_plain(B, N, d, gather, cuda):
 
 @pytest.mark.cuda
 def test_kernels_flag_out_of_range_ids(cuda):
+    """Both binary_ip entries on both paths, and int4_dist: an id outside
+    the table gives NaN in its column and only there."""
     q, codes = _bip_inputs(2, 16, 64, seed=8)
     _, ext, lo, step = _i4_inputs(2, 16, 64, seed=9)
     qt, ct, et, lt, st = _t(q, codes, ext, lo, step, device=cuda)
+    nt, ibt = lt + 3.0, st + 0.5  # norms and ip_bar, one per code row
     ids = torch.tensor([0, 16, -1, 3], device=cuda)
-    for out in (binary_ip(qt, ct, ids), int4_dist2(qt, et, lt, st, ids)):
+    for out in (binary_ip(qt, ct, ids), int4_dist2(qt, et, lt, st, ids),
+                estimate_dist2(qt, ct, nt, ibt, ids),
+                bip_kernel.binary_ip_cuda(qt, ct, ids, tensor_cores=True),
+                bip_kernel.estimate_dist2_cuda(qt, ct, nt, ibt, ids, tensor_cores=True)):
         bad = torch.isnan(out).cpu().numpy()
         assert bad[:, [1, 2]].all() and not bad[:, [0, 3]].any()
     with pytest.raises(ValueError):
         binary_ip(qt, ct.cpu(), None)
+    with pytest.raises(ValueError):
+        estimate_dist2(qt, ct, nt.cpu(), ibt, ids)
 
 
 # the search path's int4_dist edges: B around the kernel's query groups (1,
@@ -350,3 +561,126 @@ def test_int4_kernel_flags_out_of_range_ids_at_every_width(d, cuda, i4_tables):
     good = ids[[0, 3, 4, 6]]
     want = int4_dist2_ref(qt.to(cuda), ct[good], lt[good], st[good]).cpu()
     np.testing.assert_allclose(out[:, [0, 3, 4, 6]].numpy(), want.numpy(), rtol=1e-4, atol=1e-3)
+
+
+# binary_ip's edges: B around the lanes path's query groups (1, 2-3, 8) and
+# the tensor-core path's 8-query fragment, N around both paths' row groups,
+# d from one byte a row to 120; ids into a SIFT1M-sized table, or none (the
+# table's first N rows); fp32 and bf16 queries; each path
+BIP_CARD_B, BIP_CARD_N, BIP_CARD_D = (1, 3, 8), (1, 7, 31, 33, 255, 257), (8, 64, 128, 960)
+BIP_TABLE = 1_000_000
+
+
+@pytest.fixture(scope="module")
+def bip_tables():
+    """Per d: codes, norms, ip_bar of BIP_TABLE rows made on the card from
+    a seed, once (ip_bar in [0.05, 0.95], so that some cosines clip)."""
+    made = {}
+
+    def get(d, dev):
+        if d not in made:
+            gen = torch.Generator(device=dev).manual_seed(d)
+            made[d] = (
+                torch.randint(0, 256, (BIP_TABLE, d // 8), generator=gen, device=dev,
+                              dtype=torch.uint8),
+                torch.rand(BIP_TABLE, generator=gen, device=dev) * 2 + 0.25,
+                torch.rand(BIP_TABLE, generator=gen, device=dev) * 0.9 + 0.05)
+        return made[d]
+
+    return get
+
+
+def _bip_both_entries(qt, ct, nt, ibt, ids, tensor_cores):
+    """Both entries on one path, against their plain versions on the rows
+    they read; asserts one launch each."""
+    n0 = bip_kernel.launches
+    got_ip = bip_kernel.binary_ip_cuda(qt, ct, ids, tensor_cores=tensor_cores)
+    got_est = bip_kernel.estimate_dist2_cuda(qt, ct, nt, ibt, ids, tensor_cores=tensor_cores)
+    assert bip_kernel.launches == n0 + 2
+    rows = (ct, nt, ibt) if ids is None else (ct[ids], nt[ids], ibt[ids])
+    want_ip, want_est = binary_ip_ref(qt, rows[0]), estimate_dist2_ref(qt, *rows)
+    np.testing.assert_allclose(got_ip.cpu().numpy(), want_ip.cpu().numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got_est.cpu().numpy(), want_est.cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["auto", "tensor cores"])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("table", ["1M rows", "no ids"])
+@pytest.mark.parametrize("d", BIP_CARD_D)
+@pytest.mark.parametrize("N", BIP_CARD_N)
+@pytest.mark.parametrize("B", BIP_CARD_B)
+def test_binary_ip_kernel_edges_match_plain(B, N, d, table, qdtype, path, cuda, bip_tables):
+    ct, nt, ibt = bip_tables(d, cuda)
+    rng = np.random.default_rng(B * N + d)
+    qt = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32)).to(cuda)
+    qt = qt.to(getattr(torch, qdtype))
+    ids = None
+    if table == "1M rows":
+        ids = torch.from_numpy(rng.integers(0, BIP_TABLE, N)).to(cuda)
+    else:
+        ct, nt, ibt = ct[:N], nt[:N], ibt[:N]
+    tc = None if path == "auto" else True
+    if tc and d % 32:
+        with pytest.raises(ValueError):
+            bip_kernel.binary_ip_cuda(qt, ct, ids, tensor_cores=True)
+        return
+    _bip_both_entries(qt, ct, nt, ibt, ids, tc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,N,d", [(8, BIP_TABLE, 128), (8, 200_000, 960), (33, 20_001, 128),
+                                   (33, 300, 64)])
+def test_binary_ip_kernel_sweeps_match_plain(B, N, d, qdtype, cuda, bip_tables):
+    """Sweeps of the table (no ids) hold the fp32 bar over every row: on the
+    tensor cores 8 queries x 1M rows at d = 128, x 200 000 at d = 960 (60
+    k-steps a row), 33 queries (five blocks of 8) x 20 001 rows; on the
+    lanes path 33 queries x 300 rows."""
+    ct, nt, ibt = (t[:N] for t in bip_tables(d, cuda))
+    assert bip_kernel.tensor_core_path(B, N, d, ct.data_ptr()) == (N >= 8192)
+    rng = np.random.default_rng(d + B)
+    qt = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32)).to(cuda)
+    _bip_both_entries(qt.to(getattr(torch, qdtype)), ct, nt, ibt, None, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", BIP_CARD_D)
+def test_binary_ip_kernel_flags_out_of_range_ids_at_every_width(d, cuda, bip_tables):
+    ct, nt, ibt = bip_tables(d, cuda)
+    T = ct.shape[0]
+    qt = torch.from_numpy(np.random.default_rng(d).standard_normal((8, d)).astype(np.float32))
+    ids = torch.tensor([0, T, -1, 3, T - 1, 1 << 40, 7], device=cuda)
+    good = ids[[0, 3, 4, 6]]
+    for tc in (False, True) if d % 32 == 0 else (False,):
+        for out, want in (
+                (bip_kernel.binary_ip_cuda(qt.to(cuda), ct, ids, tensor_cores=tc),
+                 binary_ip_ref(qt.to(cuda), ct[good])),
+                (bip_kernel.estimate_dist2_cuda(qt.to(cuda), ct, nt, ibt, ids, tensor_cores=tc),
+                 estimate_dist2_ref(qt.to(cuda), ct[good], nt[good], ibt[good]))):
+            out = out.cpu()
+            bad = torch.isnan(out).numpy()
+            assert bad[:, [1, 2, 5]].all() and not bad[:, [0, 3, 4, 6]].any()
+            np.testing.assert_allclose(out[:, [0, 3, 4, 6]].numpy(), want.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_estimate_dist2_is_one_kernel(cuda, bip_tables):
+    """On the card ops.estimate_dist2 runs exactly one CUDA kernel, the
+    hand-written one: no PyTorch op before or after it (counted by the
+    CUDA profiler at the search path's flush shape)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ct, nt, ibt = bip_tables(128, cuda)
+    qt = torch.randn(8, 128, device=cuda)
+    ids = torch.randint(0, BIP_TABLE, (256,), device=cuda)
+    estimate_dist2(qt, ct, nt, ibt, ids)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        estimate_dist2(qt, ct, nt, ibt, ids)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.self_device_time_total > 0 and not e.key.startswith(("Memcpy", "Memset"))}
+    assert sum(kernels.values()) == 1 and "binary_lanes_kernel" in next(iter(kernels)), kernels

@@ -4,9 +4,12 @@
     python3 tools/attention_rows.py CHECKOUT OUT.json
 
 Builds CHECKOUT's kernels, runs its ``chip_smoke.phase_kernels`` (the
-distance rows: binary_ip, int4_dist) and ``chip_smoke.phase_attention`` on
-the CUDA card and writes the rows, the card line and the build seconds to
-OUT.json.  To compare two commits on one card, unpack the other commit into
+distance rows: binary_ip's sign product, and from the fused-estimate
+redesign on its estimate rows and sweeps; int4_dist) and
+``chip_smoke.phase_attention`` on the CUDA card and writes the rows, the
+card line and the build seconds to OUT.json.  A row names its kernel, entry
+(where it has one), shape and dtype, so that the rows of two checkouts pair
+up by those fields; rows only one checkout has stand alone.  To compare two commits on one card, unpack the other commit into
 an ignored directory (``git archive``) and run both in one call, in turns:
 parent, change, change, parent.
 """

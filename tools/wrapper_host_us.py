@@ -7,9 +7,10 @@ At the search path's flush shape (8 queries x 256 ids gathered from a 1M x
 128 table) a call's device time is a few microseconds and its wrapper's host
 time is most of what CUDA events around one call read.  This times, on the
 host clock over 20 000 back-to-back calls (three repeats each), the public
-wrappers ``int4_dist2`` and ``binary_ip`` and the parts of a launch: the
-ctypes call alone (the C entry and the kernel launch), ``torch.empty`` of
-the output, and the raw-stream lookup.  Prints one line per part and writes
+wrappers ``int4_dist2``, ``binary_ip`` and ``estimate_dist2`` (the fused
+RaBitQ estimate, which the search path calls) and the parts of a launch:
+the ctypes call alone (the C entry and the kernel launch), ``torch.empty``
+of the output, and the raw-stream lookup.  Prints one line per part and writes
 the numbers, with the card line, to OUT.json when given.
 """
 
@@ -58,14 +59,21 @@ def main() -> int:
     signs = torch.randint(0, 256, (T, d // 8), device=dev, dtype=torch.uint8, generator=g)
     lo = torch.rand(T, device=dev, generator=g)
     step = torch.rand(T, device=dev, generator=g)
+    norms = torch.rand(T, device=dev, generator=g) + 0.5
+    ip_bar = torch.rand(T, device=dev, generator=g) * 0.3 + 0.6
     ids = torch.randint(0, T, (N,), device=dev, generator=g)
     out = torch.empty(B, N, device=dev)
     args = (q.data_ptr(), codes.data_ptr(), lo.data_ptr(), step.data_ptr(), ids.data_ptr(),
             out.data_ptr(), B, N, d, T, dev.index, _build.stream(dev))
+    est_args = (q.data_ptr(), signs.data_ptr(), norms.data_ptr(), ip_bar.data_ptr(),
+                ids.data_ptr(), out.data_ptr(), B, N, d, T, 0, dev.index, _build.stream(dev))
     parts = {
         "int4_dist2 (public wrapper)": lambda: i4_ops.int4_dist2(q, codes, lo, step, ids),
         "binary_ip (public wrapper)": lambda: bip_ops.binary_ip(q, signs, ids),
+        "estimate_dist2 (public wrapper)":
+            lambda: bip_ops.estimate_dist2(q, signs, norms, ip_bar, ids),
         "int4_dist_f32 ctypes call alone": lambda: lib.int4_dist_f32(*args),
+        "binary_est_f32 ctypes call alone": lambda: lib.binary_est_f32(*est_args),
         "torch.empty of the output": lambda: torch.empty((B, N), dtype=torch.float32, device=dev),
         "_build.stream": lambda: _build.stream(dev),
     }
