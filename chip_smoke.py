@@ -14,7 +14,10 @@ Phases (each one that fails ends the run with a non-zero exit):
               (which must show HMMA in cuobjdump -sass); paged_attention at
               Yi-6B widths (B x context sweep, bf16 and fp32 pages);
               flash_attention at Yi-6B prefill, a gemma3-1b
-              local layer and whisper-small's encoder, bf16 and fp32 inputs
+              local layer and whisper-small's encoder, bf16 and fp32 inputs;
+              both at the reduced Yi-6B config's Dh 16, and paged decode at
+              granite-20b's group of 48 heads over Dh 128; binary_ip's bf16
+              sweeps at scan_search's chunk and tail (B 8 and 64)
               (fp32 rows bounded at the TF32 peak, the fp32 peak beside it;
               the fp32 and bf16 kernels must show tensor-core instructions
               in cuobjdump -sass).  Max error, kernel,
@@ -30,13 +33,28 @@ Phases (each one that fails ends the run with a non-zero exit):
               the kernels' launch counters are set to 0 before each torch run
               and read after it; a profiled 50-query run gives the device's
               busy share, its top kernels and its launch and copy totals
-  6. kv serve the paged KV serving plane end to end, twice: a PagedKVPool of
+  6. serving plane  the multi-tenant ServingPlane on phase 5's index (one
+              combined table on the torch engine): a 1-tenant plane equals the
+              isolated system, a 2-tenant static partition two isolated
+              systems, velo at S = 1 equals unsharded and S = 2 keeps recall
+              within 0.01, scheduler="rr" with a deadline plan equals the
+              plan-free run
+  7. velo device  the device search plane: batch_search (lockstep beam) and
+              scan_search (binary_ip tensor-core stage 1, stable top-k merges,
+              int4 rerank) on phase 5's index against the port on the CPU,
+              scan_search over phase 4's 1M table (31 binary_ip launches a
+              scan, each held against binary_ip_ref on the scan's own
+              queries and chunk) against use_kernel=False; batch_search must
+              take the CPU's steps for every query and its top-10 ids for
+              99 % of them; recall@10 against exact top-10 (an fp32 matmul),
+              CUDA-event times, a profiled kernel split
+  8. kv serve the paged KV serving plane end to end, twice: a PagedKVPool of
               bf16 pages at Yi-6B widths on the card, a CacheAwareScheduler
               over 48 seeded requests, one paged_attention launch per decode
               step (tables from PagedKVPool.batch_block_tables); 1 024 pages,
               oversubscribed (clock eviction and swap-in), then 60 000 pages,
               one layer's share of the card, which the traffic fits
-  7. report   one JSON line of per-kernel numbers, then the card line and the
+  9. report   one JSON line of per-kernel numbers, then the card line and the
               final {"ok": true, ...} line
 
 Imports torch, numpy and the port (src/repro_torch) only.
@@ -48,6 +66,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -58,8 +77,9 @@ from torch.nn.functional import scaled_dot_product_attention as sdpa
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.core import baselines, dataset, distance, vamana  # noqa: E402
+from repro_torch.core import baselines, dataset, distance, serving, vamana, workload  # noqa: E402
 from repro_torch.core import beam as beam_mod  # noqa: E402
+from repro_torch.core.scheduling import SlaPlan  # noqa: E402
 from repro_torch.core.quant import RabitQuantizer  # noqa: E402
 from repro_torch.device import kernels_built  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -77,6 +97,8 @@ from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
 from repro_torch.serving.kv_pool import PagedKVPool  # noqa: E402
 from repro_torch.serving.scheduler import CacheAwareScheduler, ServeRequest  # noqa: E402
+from repro_torch.velo import batch_search, scan_search  # noqa: E402
+from repro_torch.velo import index as velo_index  # noqa: E402
 
 # H100 SXM data-sheet peaks: HBM3 bytes/s, fp32 (non-tensor), TF32 and bf16
 # (dense tensor-core) flop/s
@@ -105,6 +127,11 @@ LIB_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5), torch.bfloat16: dict(rtol=
 # Yi-6B attention (src/repro/configs/yi_6b.py): 32 query heads, 4 KV heads,
 # head dim 128; KV pages of 16 tokens
 YI = dict(H=32, KVH=4, Dh=128, page=16)
+# the reduced Yi-6B config's attention (yi_6b.py REDUCED: 4/2 heads, Dh 16,
+# the head width of every reduced config) and granite-20b's (granite_20b.py:
+# 48 query heads over one KV head of Dh 128, a group wider than one block)
+YI_REDUCED = dict(H=4, KVH=2, Dh=16, page=16)
+GRANITE = dict(H=48, KVH=1, Dh=128, page=16)
 # each row's time before its kernel's Hopper redesign (ms, CUDA events,
 # NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), where PERF.md recorded
 # one, by (kernel, shape, input dtype): the bf16 attention rows and paged
@@ -126,27 +153,27 @@ EARLIER_MS = {
 # engine vs the NumPy batch engine, whose estimator epilogue is float64
 HOST_TOL = dict(rtol=2e-3, atol=2e-3)
 # every kernel: its source, the TPU kernel it replaces, its launch counter,
-# the phase whose run gives its reported launches, and the fields of the row
-# whose times the report carries (binary_ip's: the fused estimate, which is
-# what the search path launches)
+# the phases whose runs give its reported launches (summed), and the fields
+# of the row whose times the report carries (binary_ip's: the fused
+# estimate, which is what the search path launches)
 SIFT1M_FLUSH = dict(shape="B=8 N=256 d=128 table=1000000 gathered", dtype="float32")
 KERNELS = {
     "binary_ip": dict(source="src/repro_torch/csrc/binary_ip.cu",
                       replaces="src/repro/kernels/binary_ip/kernel.py:28",
-                      counter=bip_kernel, path="search",
+                      counter=bip_kernel, paths=("search", "serving plane", "velo device"),
                       main=dict(SIFT1M_FLUSH, entry="estimate_dist2")),
     "int4_dist": dict(source="src/repro_torch/csrc/int4_dist.cu",
                       replaces="src/repro/kernels/int4_dist/kernel.py:27",
-                      counter=i4_kernel, path="search", main=SIFT1M_FLUSH),
+                      counter=i4_kernel, paths=("search", "serving plane"), main=SIFT1M_FLUSH),
     # a decode step of 8 sequences x 2048 tokens, bf16 pages
     "paged_attention": dict(source="src/repro_torch/csrc/paged_attention.cu",
                             replaces="src/repro/kernels/paged_attention/kernel.py:29",
-                            counter=pa_kernel, path="kv serve",
+                            counter=pa_kernel, paths=("kv serve",),
                             main=dict(shape="B=8 ctx=2048", dtype="bfloat16")),
     # no system path calls it: its launches are phase 3's
     "flash_attention": dict(source="src/repro_torch/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention/kernel.py:33",
-                            counter=fa_kernel, path="attention kernels",
+                            counter=fa_kernel, paths=("attention kernels",),
                             main=dict(shape="yi-6b prefill S=2048", dtype="bfloat16")),
 }
 # kv serve: the pool cut so that 16 live requests of ~1 280 tokens (~1 300
@@ -270,21 +297,33 @@ def bound_ms(nbytes: int, flops: int, flop_per_s: float = FP32_FLOP_PER_S) -> tu
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _profile(fn):
+    """One call of ``fn`` under the CUDA profiler: (its wall seconds, the
+    kernels, the copies and fills), each a list of key averages with device
+    time, longest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+    copy = ("Memcpy", "Memset")
+    return (wall, [e for e in avgs if not e.key.startswith(copy)],
+            [e for e in avgs if e.key.startswith(copy)])
+
+
 def profiled_kernels(fn, attempts: int = 3) -> dict[str, int]:
     """The CUDA kernels (copies and fills left out) that the profiler records
     in one call of ``fn``: name -> count.  The profiler sometimes loses a
     record, so an empty reading is taken again, up to ``attempts`` times."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
     kernels: dict[str, int] = {}
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = {e.key: e.count for e in prof.key_averages() if e.self_device_time_total > 0
-                   and not e.key.startswith(("Memcpy", "Memset"))}
+        kernels = {e.key: e.count for e in _profile(fn)[1]}
         if kernels:
             break
     return kernels
@@ -415,6 +454,11 @@ def phase_kernels(dev) -> list[dict]:
     rows.append(check_binary_ip(dev, gen, 8, 1_000_000, 128, 1_000_000, False, torch.float32,
                                 "estimate_dist2"))
     rows.append(check_int4_dist(dev, gen, 8, 1_000_000, 128, 1_000_000, gather=False))
+    # scan_search's stage-1 launches over the 1M table: a 32 768-row chunk
+    # and the 16 960-row tail, bf16 queries at B in {8, 64}
+    for B in (8, 64):
+        for N in (32_768, 16_960):
+            rows.append(check_binary_ip(dev, gen, B, N, 128, N, False, torch.bfloat16))
     print(f"{'kernel':10} {'entry':14} {'path':12} {'B':>2} {'N':>8} {'d':>4} {'table':>8} "
           f"{'q':>8} {'max_err':>9} {'ms':>9} {'plain_ms':>9} {'lib_ms':>10} {'bound_ms':>9} "
           f"{'dev_us':>8} {'pl_dev_us':>9} {'prev_ms':>8} by")
@@ -452,13 +496,14 @@ def _check(kernel: str, shape: str, dtype, got, want, lib_out) -> tuple[float, f
     return err, lib_err
 
 
-def check_paged(dev, gen, B, ctx, dtype, flush) -> dict:
-    """paged_attention at Yi-6B widths: B sequences of ``ctx`` tokens (the
-    last one ragged: 7 tokens, below a page; at B = 1, ctx - 5), block
-    tables a seeded permutation of the B * ctx / 16 pages.  Times are taken
-    with the L2 cache flushed before each call, as a decode step finds one
-    layer's pages."""
-    H, KVH, Dh, page = YI["H"], YI["KVH"], YI["Dh"], YI["page"]
+def check_paged(dev, gen, B, ctx, dtype, flush, widths=YI, model="") -> dict:
+    """paged_attention at ``widths`` (Yi-6B's unless given; ``model`` then
+    prefixes the row's shape): B sequences of ``ctx`` tokens (the last one
+    ragged: 7 tokens, below a page; at B = 1, ctx - 5), block tables a
+    seeded permutation of the B * ctx / 16 pages.  Times are taken with the
+    L2 cache flushed before each call, as a decode step finds one layer's
+    pages."""
+    H, KVH, Dh, page = widths["H"], widths["KVH"], widths["Dh"], widths["page"]
     max_pages = ctx // page
     P = B * max_pages
     q = torch.randn(B, H, Dh, generator=gen, device=dev).to(dtype)
@@ -488,7 +533,8 @@ def check_paged(dev, gen, B, ctx, dtype, flush) -> dict:
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
             return sdpa(qg, kd, vd, attn_mask=mask)
 
-    err, lib_err = _check("paged_attention", f"B={B} ctx={ctx}", dtype, kernel(), plain(),
+    shape = f"{model} B={B} ctx={ctx}".strip()
+    err, lib_err = _check("paged_attention", shape, dtype, kernel(), plain(),
                           library().reshape(B, H, Dh))
     tokens = int(cl.sum())
     es = q.element_size()
@@ -496,7 +542,7 @@ def check_paged(dev, gen, B, ctx, dtype, flush) -> dict:
     nbytes = 2 * q.numel() * es + 2 * tokens * KVH * Dh * es + pages_read * 4 + B * 4
     b_ms, b_by = bound_ms(nbytes, 4 * H * Dh * tokens, PEAK_FLOP_PER_S[dtype])
     return _rates(dict(
-        kernel="paged_attention", shape=f"B={B} ctx={ctx}", B=B, ctx=ctx,
+        kernel="paged_attention", shape=shape, B=B, H=H, KVH=KVH, Dh=Dh, ctx=ctx,
         dtype=str(dtype)[6:], max_abs_err=err, library_err=lib_err,
         ms=time_ms(kernel, flush=flush), plain_ms=time_ms(plain, flush=flush),
         library_ms=time_ms(library, flush=flush), library_backend="efficient",
@@ -596,15 +642,28 @@ def phase_attention(dev, card: str) -> tuple[list[dict], dict[str, int]]:
                             True, 512, torch.float32))
     rows.append(check_flash(dev, gen, "whisper-small encoder S=1500", 1, 12, 12, 1500, 64,
                             False, None, torch.float32))
+    # the repaired shapes: Dh 16 (the reduced Yi-6B config: 4/2 heads),
+    # prefill and decode in both dtypes, and granite-20b's full decode
+    # (group 48 x Dh 128, split over two blocks of 24 heads)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    red = YI_REDUCED
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(check_flash(dev, gen, "yi-6b-reduced prefill B=8 S=2048", 8, red["H"],
+                                red["KVH"], 2048, red["Dh"], True, None, dtype))
+        rows.append(check_paged(dev, gen, 8, 2048, dtype, flush, red, "yi-6b-reduced"))
+    rows.append(check_flash(dev, gen, "yi-6b-reduced prefill B=8 S=2048 w=512", 8, red["H"],
+                            red["KVH"], 2048, red["Dh"], True, 512, torch.bfloat16))
+    rows.append(check_paged(dev, gen, 8, 2048, torch.bfloat16, flush, GRANITE, "granite-20b"))
+    del flush
     launches = read_launches()
     print(f"attention kernels on {card}:")
-    print(f"{'kernel':15} {'shape':30} {'dtype':8} {'max_err':>9} {'lib_err':>9} {'ms':>9} "
+    print(f"{'kernel':15} {'shape':40} {'dtype':8} {'max_err':>9} {'lib_err':>9} {'ms':>9} "
           f"{'prev_ms':>8} {'plain_ms':>9} {'lib_ms':>9} {'sdpa':9} {'bound_ms':>9} "
           f"{'dev_us':>9} {'rate':>8} {'unit':7} {'share':>6} {'dev_sh':>6} by")
     for r in rows:
         earlier = "—" if r["earlier_ms"] is None else f"{r['earlier_ms']:.3f}"
         dsh = "n/m" if r["device_bound_share"] is None else f"{r['device_bound_share']:.3f}"
-        print(f"{r['kernel']:15} {r['shape']:30} {r['dtype']:8} {r['max_abs_err']:9.2e} "
+        print(f"{r['kernel']:15} {r['shape']:40} {r['dtype']:8} {r['max_abs_err']:9.2e} "
               f"{r['library_err']:9.2e} {r['ms']:9.5f} {earlier:>8} {r['plain_ms']:9.5f} "
               f"{r['library_ms']:9.5f} {r['library_backend']:9} {r['bound_ms']:9.6f} "
               f"{_us(r['device_us']):>9} {r['rate']:8.1f} {r['rate_unit']:7} "
@@ -619,7 +678,9 @@ def phase_attention(dev, card: str) -> tuple[list[dict], dict[str, int]]:
 # ------------------------------------------------------------------ phase 4
 
 
-def phase_tables(rng, n: int = 1_000_000, d: int = 128) -> dict:
+def phase_tables(rng, n: int = 1_000_000, d: int = 128) -> tuple[dict, object, np.ndarray]:
+    """The report, the 1M-row QuantizedBase and its base vectors (which the
+    velo device phase scans)."""
     base = rng.standard_normal((n, d), dtype=np.float32)
     t0 = time.perf_counter()
     qb = RabitQuantizer(d, seed=0).fit_encode(base)
@@ -677,10 +738,18 @@ def phase_tables(rng, n: int = 1_000_000, d: int = 128) -> dict:
                max_memory_allocated=peak, uploads=eng.stats.uploads)
     require(eng.stats.uploads == 1, "the 1M table must stay registered once")
     print("tables:", json.dumps(out))
-    return out
+    return out, qb, base
 
 
 # ------------------------------------------------------------------ phase 5
+
+
+def _ids_of(results, k: int) -> np.ndarray:
+    """(queries, k) result ids, -1 where a query returned fewer than k."""
+    ids = np.full((len(results), k), -1, dtype=np.int64)
+    for i, r in enumerate(results):
+        ids[i, : min(k, len(r.ids))] = r.ids[:k]
+    return ids
 
 
 def _velo(ds, graph, qb, backend, device_beam):
@@ -698,17 +767,17 @@ def _search(ds, graph, qb, backend, device_beam) -> dict:
     results, stats = system.run(ds.queries)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {n: v for n, v in read_launches().items() if KERNELS[n]["path"] == "search"}
-    ids = np.full((len(results), ds.k), -1, dtype=np.int64)
-    for i, r in enumerate(results):
-        ids[i, : min(ds.k, len(r.ids))] = r.ids[: ds.k]
+    launches = {n: v for n, v in read_launches().items() if "search" in KERNELS[n]["paths"]}
+    ids = _ids_of(results, ds.k)
     return dict(backend=system.ctx.dist.name, device_beam=device_beam, ids=ids,
                 recall=dataset.recall_at_k(ids, ds.groundtruth, ds.k),
                 simulated_qps=stats.qps, wall_s=wall, launches=launches,
                 dist_uploads=system.ctx.dist.stats.uploads)
 
 
-def phase_search(n: int = 10_000, d: int = 128) -> dict:
+def phase_search(n: int = 10_000, d: int = 128) -> tuple[dict, tuple]:
+    """The report, and the (dataset, graph, quantized base) the serving and
+    velo device phases reuse (the host graph build alone takes minutes)."""
     t0 = time.perf_counter()
     ds = dataset.make_dataset(n=n, d=d, n_queries=200, seed=0)
     graph = vamana.build_vamana(ds.base, R=32, L=64, seed=0)
@@ -733,7 +802,7 @@ def phase_search(n: int = 10_000, d: int = 128) -> dict:
     print(f"search: index build {build_s:.1f} s (host NumPy), 200 queries per run")
     busy = _busy_share(ds, graph, qb)
     print("search: profiled torch run:", json.dumps(busy))
-    return dict(build_s=build_s, batch=ref, torch=runs, profiled=busy)
+    return dict(build_s=build_s, batch=ref, torch=runs, profiled=busy), (ds, graph, qb)
 
 
 def _busy_share(ds, graph, qb, n_queries: int = 50) -> dict:
@@ -741,26 +810,272 @@ def _busy_share(ds, graph, qb, n_queries: int = 50) -> dict:
     summed kernel time from the CUDA profiler over the wall time of a
     separate profiled run of ``n_queries`` (the profiler's own cost inflates
     this run's wall time, so the share is a lower bound)."""
-    from torch.profiler import ProfilerActivity, profile
-
     system = _velo(ds, graph, qb, "torch", False)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        system.run(ds.queries[:n_queries])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    avgs = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
-    avgs = [e for e in avgs if e.self_device_time_total > 0]
+    wall, kernels, copies = _profile(lambda: system.run(ds.queries[:n_queries]))
+    avgs = sorted(kernels + copies, key=lambda e: -e.self_device_time_total)
     device_s = sum(e.self_device_time_total for e in avgs) / 1e6
-    copies = {k: sum(e.count for e in avgs if e.key.startswith(k))
-              for k in ("Memcpy HtoD", "Memcpy DtoH")}
-    launches = sum(e.count for e in avgs if not e.key.startswith(("Memcpy", "Memset")))
     return dict(queries=n_queries, wall_s=wall, device_s=device_s,
-                busy_share=device_s / wall, kernel_launches=launches, copies=copies,
+                busy_share=device_s / wall, kernel_launches=sum(e.count for e in kernels),
+                copies={k: sum(e.count for e in copies if e.key.startswith(k))
+                        for k in ("Memcpy HtoD", "Memcpy DtoH")},
                 top=[[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in avgs[:8]])
 
 
 # ------------------------------------------------------------------ phase 6
+
+
+def _same_results(want, got, dists: bool = False) -> bool:
+    """ids, hops and reads equal query by query (and dists bit for bit)."""
+    return len(want) == len(got) and all(
+        np.array_equal(a.ids, b.ids) and a.hops == b.hops and a.reads == b.reads
+        and (not dists or np.array_equal(a.dists, b.dists)) for a, b in zip(want, got))
+
+
+def _serve_cfg(**kw) -> baselines.SystemConfig:
+    """The serving phase's velo on the torch engine: fuse on, stride
+    prefetch off (the one schedule-sensitive piece, as the parity tests)."""
+    kw.setdefault("buffer_ratio", 0.2)
+    kw.setdefault("batch_size", 8)
+    return baselines.SystemConfig(distance_backend="torch", fuse=True,
+                                  params=baselines.SearchParams(L=64, W=4, prefetch=False), **kw)
+
+
+def phase_serving(ds, graph, qb, card: str) -> dict:
+    """The serving plane and the serving-scale contracts on the card, on
+    phase 5's index: a 1-tenant plane is the isolated system; a 2-tenant
+    statically partitioned plane (two tenants sharing the one index image,
+    B = 1) is two isolated systems; velo at S = 1 is unsharded and S = 2
+    keeps recall within 0.01; scheduler="rr" with a deadline plan is the
+    plan-free run.  Every run is the torch engine on the card."""
+    k, n_q = ds.k, len(ds.queries)
+    wall: dict[str, float] = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        return out
+
+    def velo(**kw):
+        return baselines.build_system("velo", ds.base, graph, qb, _serve_cfg(**kw))
+
+    reset_launches()
+    iso = velo()
+    iso_res, iso_stats = timed("isolated", lambda: iso.run(ds.queries))
+    require(iso.ctx.dist.name == "torch" and iso.ctx.dist.device.type == "cuda",
+            "serving: the isolated system must run the torch engine on the card")
+    spec = serving.TenantSpec.from_dataset("t0", ds, graph, qb, system="velo")
+    plane = serving.ServingPlane([spec], _serve_cfg(), shared_pool=True)
+    prun = timed("plane 1 tenant", lambda: plane.run(workload.uniform_mix([n_q], n_q, seed=0)))
+    one_tenant = _same_results(iso_res, prun.tenants[0].results, dists=True)
+    require(one_tenant, "serving: a 1-tenant plane differs from the isolated system")
+    require(plane.dist.stats.uploads == 1, "serving: the combined table must upload once")
+
+    # two tenants on the one index image and query set; n_q / 2 arrivals in
+    # all, so no tenant's queries wrap around
+    specs = [serving.TenantSpec.from_dataset(name, ds, graph, qb) for name in ("a", "b")]
+    plane2 = serving.ServingPlane(specs, _serve_cfg(batch_size=1), shared_pool=False)
+    wl2 = workload.uniform_mix([n_q, n_q], n_q // 2, seed=3)
+    run2 = timed("plane 2 tenants B=1", lambda: plane2.run(wl2))
+    two_tenants = []
+    for tid, sp in enumerate(specs):
+        tr = run2.tenants[tid]
+        ref_res, _ = timed(f"isolated {sp.name} B=1",
+                           lambda: velo(batch_size=1).run(sp.queries[: tr.stats.n_queries]))
+        two_tenants.append(_same_results(ref_res, tr.results, dists=True))
+    require(all(two_tenants), f"serving: a partitioned tenant differs from its isolated "
+            f"system: {two_tenants}")
+
+    s1_res, s1_stats = timed("S=1", lambda: velo(n_shards=1).run(ds.queries))
+    s1_equal = (_same_results(iso_res, s1_res, dists=True)
+                and s1_stats.makespan_s == iso_stats.makespan_s)
+    require(s1_equal, "serving: velo at S = 1 differs from the unsharded run")
+    s2_res, s2_stats = timed("S=2", lambda: velo(n_shards=2).run(ds.queries))
+    recall = {S: dataset.recall_at_k(_ids_of(r, k), ds.groundtruth, k)
+              for S, r in ((1, s1_res), (2, s2_res))}
+    require(abs(recall[2] - recall[1]) <= 0.01 and s2_stats.shard_merges > 0,
+            f"serving: velo recall at S = 2 {recall[2]} is not within 0.01 of S = 1 {recall[1]}")
+
+    rr_res, rr_stats = timed("rr with a plan", lambda: velo(scheduler="rr").run(
+        ds.queries, sla=SlaPlan.build(n_q, sla_ms=5.0)))
+    rr_equal = (_same_results(iso_res, rr_res, dists=True)
+                and rr_stats.makespan_s == iso_stats.makespan_s)
+    require(rr_equal, "serving: scheduler=rr with a plan differs from the plan-free run")
+    launches = read_launches()
+    require(launches["binary_ip"] > 0 and launches["int4_dist"] > 0,
+            f"serving: a kernel was not launched: {launches}")
+    out = dict(card=card, queries=n_q, one_tenant_equal=one_tenant,
+               two_tenants_equal=two_tenants, s1_equal=s1_equal, recall_s1=recall[1],
+               recall_s2=recall[2], rr_plan_equal=rr_equal,
+               recall_isolated=dataset.recall_at_k(_ids_of(iso_res, k), ds.groundtruth, k),
+               cross_tenant_flushes=run2.stats.cross_tenant_flushes, wall_s=wall,
+               launches=launches)
+    print("serving plane:", json.dumps(out))
+    return out
+
+
+# ------------------------------------------------------------------ phase 7
+
+
+def _exact_top(dev, base: np.ndarray, queries: np.ndarray, k: int) -> np.ndarray:
+    """Exact top-k ids by an fp32 torch.matmul on the card: a yardstick for
+    recall, not the port's path."""
+    x = torch.from_numpy(base).to(dev)
+    q = torch.from_numpy(queries).to(dev)
+    d2 = (q * q).sum(1, keepdim=True) - 2.0 * (q @ x.T) + (x * x).sum(1)[None, :]
+    return torch.topk(d2, k, dim=1, largest=False).indices.cpu().numpy()
+
+
+def _recall(ids: torch.Tensor, exact: np.ndarray) -> float:
+    return dataset.recall_at_k(ids.cpu().numpy(), exact, exact.shape[1])
+
+
+def _event_call(fn):
+    """(result, device ms between CUDA events around the call, wall s)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), time.perf_counter() - t0
+
+
+def _kernel_split(fn) -> dict:
+    """One profiled call of ``fn``: the CUDA kernels' summed device time,
+    split into binary_ip's kernels (binary_lanes_kernel, binary_mma_kernel),
+    the sorts (cub radix sorts and their helpers: every kernel whose name
+    says sort) and the rest, with the top kernels by time."""
+    fn()
+    torch.cuda.synchronize()
+    _, kernels, copies = _profile(fn)
+
+    def us(pred):
+        return sum(e.self_device_time_total for e in kernels if pred(e.key))
+
+    total = us(lambda key: True)
+    binary = us(lambda key: "binary_lanes_kernel" in key or "binary_mma_kernel" in key)
+    sort = us(lambda key: "sort" in key.lower())
+    return dict(kernel_us=total, binary_ip_us=binary, sort_us=sort,
+                other_us=total - binary - sort,
+                copy_us=sum(e.self_device_time_total for e in copies),
+                launches=sum(e.count for e in kernels),
+                top=[[e.key[:60], e.self_device_time_total, e.count] for e in kernels[:8]])
+
+
+def check_scan_chunks(index, queries: torch.Tensor) -> dict:
+    """binary_ip against binary_ip_ref on each stage-1 launch of a scan:
+    the scan's own bf16 unit queries and its chunk views of the codes (the
+    tail too).  Every chunk must take the tensor-core path."""
+    _, _, qunit = batch_search._prepare_queries(index, queries.to(index.device))
+    q = qunit.to(torch.bfloat16)
+    codes = index.binary_codes[:-1]
+    n, step, err = codes.shape[0], scan_search.DEFAULT_CHUNK, 0.0
+    for lo in range(0, n, step):
+        blk = codes[lo:lo + step]
+        got, want = bip_ops.binary_ip(q, blk), bip_ref.binary_ip_ref(q, blk)
+        e = float((got - want).abs().max())
+        where = f"scan chunk at row {lo}, B={len(q)} N={len(blk)}"
+        require(bip_kernel.tensor_core_path(len(q), len(blk), q.shape[1], blk.data_ptr()),
+                f"velo device: {where} is not on binary_ip's tensor-core path")
+        require(torch.allclose(got, want, **TOL["binary_ip"]),
+                f"velo device: binary_ip disagrees with its plain version at {where}: {e}")
+        err = max(err, e)
+    return dict(B=len(q), chunks=-(-n // step), tail=n % step, max_abs_err=err)
+
+
+def phase_velo_device(dev, ds, graph, qb, qb1m, base1m, card: str) -> dict:
+    """The velo device plane on the card: batch_search (the lockstep beam,
+    all 200 queries, L 64, k 10, 96 steps) and scan_search (binary_ip
+    tensor-core stage 1 in chunks of 32 768 rows, stable top-k merges, int4
+    rerank) on phase 5's 10 000 x 128 index, against the same functions run
+    by the port on the CPU; and scan_search over phase 4's 1M x 128 table at
+    B in {8, 64}, with the kernel against use_kernel=False (binary_ip_ref)
+    on the card.  Recall@10 is against exact top-10 by an fp32 matmul."""
+    k = 10
+    out = dict(card=card, runs=[])
+    idx = velo_index.from_host(qb, graph, device=dev)
+    idx_cpu = velo_index.from_host(qb, graph, device="cpu")
+    exact = _exact_top(dev, ds.base, ds.queries, k)
+    q_all = torch.from_numpy(ds.queries)
+    # a scan reads no adjacency: the 1M table needs no graph, only a medoid
+    stand_in = types.SimpleNamespace(adjacency=np.full((len(base1m), 1), -1, np.int32),
+                                     medoid=0)
+    idx1m = velo_index.from_host(qb1m, stand_in, device=dev)
+    q1m = np.random.default_rng(7).standard_normal((64, base1m.shape[1]), dtype=np.float32)
+    exact1m = _exact_top(dev, base1m, q1m, k)
+    reset_launches()
+
+    def record(name, B, got, want, ev_ms, wall_s, launches, exact_ids, vs):
+        same = float(np.mean(np.all(got.cpu().numpy() == want.cpu().numpy(), axis=1)))
+        r = dict(name=name, B=B, device_ms=ev_ms, wall_s=wall_s, binary_ip_launches=launches,
+                 recall=_recall(got, exact_ids), recall_vs=_recall(want, exact_ids), vs=vs,
+                 equal_top10_share=same)
+        require(abs(r["recall"] - r["recall_vs"]) <= 0.01,
+                f"velo device {name} B={B}: recall {r['recall']} against {vs} {r['recall_vs']}")
+        out["runs"].append(r)
+        return r
+
+    def batch(index):
+        return batch_search.batch_search(index, q_all, L=64, k=k, max_steps=96)
+
+    (ids, d2, steps), ev_ms, wall_s = _event_call(lambda: batch(idx))
+    require(bool(torch.isfinite(d2).all()) and ids.shape == (len(ds.queries), k),
+            "velo device: batch_search output")
+    want = batch(idx_cpu)
+    r = record("batch_search 10k", len(ds.queries), ids, want[0], ev_ms, wall_s, 0, exact, "cpu")
+    r["steps_equal_share"] = float((steps.cpu() == want[2]).float().mean())
+    # the beam's fp32 arithmetic is the CPU's up to the order of sums: every
+    # query takes the CPU's steps, and at most 1 % of rows may differ in ids
+    require(r["steps_equal_share"] == 1.0 and r["equal_top10_share"] >= 0.99,
+            f"velo device: batch_search on the card against the CPU: steps equal in "
+            f"{r['steps_equal_share']}, top-10 ids in {r['equal_top10_share']} of the rows")
+
+    n_launch = bip_kernel.launches
+    for B in (8, 64):
+        q = q_all[:B]
+        (ids, _), ev_ms, wall_s = _event_call(lambda: scan_search.scan_search(idx, q, k=k))
+        launched = bip_kernel.launches - n_launch
+        require(launched == 1, f"velo device: a 10k scan is one binary_ip launch, got {launched}")
+        n_launch = bip_kernel.launches
+        want_ids, _ = scan_search.scan_search(idx_cpu, q, k=k)
+        record("scan_search 10k", B, ids, want_ids, ev_ms, wall_s, launched, exact[:B], "cpu")
+
+    chunks = -(-len(base1m) // scan_search.DEFAULT_CHUNK)
+    for B in (8, 64):
+        q = torch.from_numpy(q1m[:B])
+        (ids, d2), ev_ms, wall_s = _event_call(lambda: scan_search.scan_search(idx1m, q, k=k))
+        launched = bip_kernel.launches - n_launch
+        require(launched == chunks, f"velo device: a 1M scan is {chunks} binary_ip launches, "
+                f"got {launched}")
+        require(bool(torch.isfinite(d2).all()), "velo device: 1M scan distances")
+        n_launch = bip_kernel.launches
+        (want_ids, _), plain_ms, _ = _event_call(
+            lambda: scan_search.scan_search(idx1m, q, k=k, use_kernel=False))
+        r = record("scan_search 1M", B, ids, want_ids, ev_ms, wall_s, launched, exact1m[:B],
+                   "use_kernel=False")
+        r["plain_device_ms"] = plain_ms
+        n_launch = bip_kernel.launches
+    out["launches"] = read_launches()
+    out["chunk_check"] = [check_scan_chunks(idx1m, torch.from_numpy(q1m[:B])) for B in (8, 64)]
+    # where the device time goes (profiled repeats, after the counts are read)
+    out["profile"] = {
+        "batch_search 10k B=200": _kernel_split(lambda: batch(idx)),
+        "scan_search 1M B=64": _kernel_split(
+            lambda: scan_search.scan_search(idx1m, torch.from_numpy(q1m), k=k)),
+        "scan_search 1M B=8": _kernel_split(
+            lambda: scan_search.scan_search(idx1m, torch.from_numpy(q1m[:8]), k=k)),
+    }
+    for r in out["runs"] + out["chunk_check"]:
+        print("velo device:", json.dumps(r))
+    for name, p in out["profile"].items():
+        print(f"velo device: profile {name}:", json.dumps(p))
+    return out
+
+
+# ------------------------------------------------------------------ phase 8
 
 
 def phase_kv_serve(dev, card: str, n_pages: int, thrash: bool) -> dict:
@@ -893,19 +1208,25 @@ def main() -> int:
     phase_s["kernels"] = time.perf_counter() - t0
     attn_rows, attn_launches = phase_attention(dev, card)
     phase_s["attention kernels"] = time.perf_counter() - t0 - sum(phase_s.values())
-    tables = phase_tables(np.random.default_rng(0))
+    tables, qb1m, base1m = phase_tables(np.random.default_rng(0))
     phase_s["tables"] = time.perf_counter() - t0 - sum(phase_s.values())
-    search = phase_search()
+    search, (ds, graph, qb) = phase_search()
     phase_s["search"] = time.perf_counter() - t0 - sum(phase_s.values())
+    plane = phase_serving(ds, graph, qb, card)
+    phase_s["serving plane"] = time.perf_counter() - t0 - sum(phase_s.values())
+    velo = phase_velo_device(dev, ds, graph, qb, qb1m, base1m, card)
+    del qb1m, base1m
+    phase_s["velo device"] = time.perf_counter() - t0 - sum(phase_s.values())
     kv = [phase_kv_serve(dev, card, KV_CUT_PAGES, thrash=True),
           phase_kv_serve(dev, card, KV_LAYER_PAGES, thrash=False)]
     phase_s["kv serve"] = time.perf_counter() - t0 - sum(phase_s.values())
     print(f"phase seconds on {card}:", json.dumps(phase_s))
 
-    # each kernel's launches on its path, summed over that path's runs
+    # each phase's launches by kernel, summed over that phase's main runs
     path_launches = {
-        "search": {n: sum(r["launches"][n] for r in search["torch"])
-                   for n, spec in KERNELS.items() if spec["path"] == "search"},
+        "search": {n: sum(r["launches"].get(n, 0) for r in search["torch"]) for n in KERNELS},
+        "serving plane": plane["launches"],
+        "velo device": velo["launches"],
         "kv serve": {n: sum(r["launches"][n] for r in kv) for n in KERNELS},
         "attention kernels": attn_launches,
     }
@@ -915,16 +1236,19 @@ def main() -> int:
         main = next(r for r in mine if all(r.get(k) == v for k, v in spec["main"].items()))
         report.append(dict(
             name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],
-            launches=path_launches[spec["path"]][name],
-            max_abs_err=max(r["max_abs_err"] for r in mine),
+            launches=sum(path_launches[p][name] for p in spec["paths"]),
+            max_abs_err=max([r["max_abs_err"] for r in mine]
+                            + [c["max_abs_err"] for c in velo["chunk_check"]
+                               if name == "binary_ip"]),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
         ))
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        dict(card=card, kernels=report, shapes=rows, attention=attn_rows, tables=tables,
-             search=search, kv_serve=kv, phase_s=phase_s, sass=sass), indent=1))
+        dict(card=card, kernels=report, launches_by_phase=path_launches, shapes=rows,
+             attention=attn_rows, tables=tables, search=search, serving_plane=plane,
+             velo_device=velo, kv_serve=kv, phase_s=phase_s, sass=sass), indent=1))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,14 @@ the affinity map as a dict.  ``index_from_reference`` checks that every field
 is present with the type this package stores, and copies the arrays, so both
 sides then search one index bit for bit without sharing memory.
 
+The ``velo`` device plane's image (``velo.index.DeviceIndex``: the tables
+with the sentinel row appended, adjacency with -1 padding replaced by n)
+travels the same way: ``device_index_from_reference`` takes the reference
+``DeviceIndex``'s fields as NumPy arrays, checks their dtypes, shapes, the
+ids and the sentinel row, and builds the port's on a device (ids become
+int64), so both packages run ``batch_search`` and ``scan_search`` over one
+index image.
+
 A paged KV pool mid-run travels the same way: ``kv_pool_from_reference``
 takes its pages, page states, owners, clock hand, block tables, swap store
 and counters as plain values and builds a ``PagedKVPool`` that continues
@@ -23,6 +31,7 @@ import torch
 from repro_torch.core.quant import QuantizedBase
 from repro_torch.core.vamana import VamanaGraph
 from repro_torch.serving.kv_pool import PagedKVPool
+from repro_torch.velo.index import DeviceIndex, from_arrays
 
 # array field -> the dtype the build gives it
 _QB_ARRAYS = {
@@ -88,6 +97,56 @@ def index_from_reference(
     if out_graph.adjacency.shape != (n, out_graph.R):
         raise ValueError("graph.adjacency must be (n, R) with the quantized base's n")
     return out_qb, out_graph
+
+
+# DeviceIndex field -> the dtype the reference's from_host gives it
+_DEVICE_INDEX_ARRAYS = {
+    "centroid": np.float32,
+    "rotation": np.float32,
+    "binary_codes": np.uint8,
+    "norms": np.float32,
+    "ip_bar": np.float32,
+    "ext_codes": np.uint8,
+    "ext_lo": np.float32,
+    "ext_step": np.float32,
+    "adjacency": np.int32,
+    "medoid": np.int32,
+}
+
+
+def device_index_from_reference(
+    fields: dict[str, np.ndarray], device: str | torch.device | None = None
+) -> DeviceIndex:
+    """The port's ``DeviceIndex`` on ``device`` (None: the process default,
+    the CUDA card) from the reference ``DeviceIndex``'s fields as NumPy
+    arrays: n + 1 rows of codes and tables (the last the sentinel: zero
+    codes, norm 1e30, ip_bar 1, ext_lo 0, ext_step 1, adjacency all n),
+    a (d, d) rotation, adjacency ids in [0, n] and a medoid in [0, n)."""
+    _check_keys("device_index", fields, DeviceIndex)
+    arr = {k: _array("device_index", k, fields[k], t) for k, t in _DEVICE_INDEX_ARRAYS.items()}
+    d = arr["centroid"].shape[0] if arr["centroid"].ndim == 1 else -1
+    rows = arr["binary_codes"].shape[0]
+    n = rows - 1
+    shapes = dict(rotation=(d, d), binary_codes=(rows, d // 8), norms=(rows,), ip_bar=(rows,),
+                  ext_codes=(rows, d // 2), ext_lo=(rows,), ext_step=(rows,), medoid=())
+    for name, shape in shapes.items():
+        if d <= 0 or d % 8 or n < 1 or arr[name].shape != shape:
+            raise ValueError(f"device_index.{name}: expected shape {shape} for d={d}, n={n}, "
+                             f"got {arr[name].shape}")
+    adj = arr["adjacency"]
+    if adj.ndim != 2 or adj.shape[0] != rows:
+        raise ValueError(f"device_index.adjacency: expected ({rows}, R), got {adj.shape}")
+    if adj.size and (adj.min() < 0 or adj.max() > n):
+        raise ValueError(f"device_index.adjacency: ids must lie in [0, {n}] (n is the sentinel)")
+    if not 0 <= int(arr["medoid"]) < n:
+        raise ValueError(f"device_index.medoid {int(arr['medoid'])} outside [0, {n})")
+    sentinel = (arr["norms"][n] == np.float32(1e30) and arr["ip_bar"][n] == 1.0
+                and not arr["binary_codes"][n].any() and not arr["ext_codes"][n].any()
+                and arr["ext_lo"][n] == 0.0 and arr["ext_step"][n] == 1.0
+                and bool((adj[n] == n).all()))
+    if not sentinel:
+        raise ValueError("device_index: the last row must be the sentinel row")
+    return from_arrays(arr, device)
 
 
 _POOL_FIELDS = {"k_pages", "v_pages", "state", "owner", "hand", "requests", "swap",

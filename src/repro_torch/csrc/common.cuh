@@ -182,8 +182,8 @@ __device__ __forceinline__ void mma_tf32_1688(float* d, const uint32_t* a, uint3
 // ---------------------------------------------------------------- sm_90a wgmma
 
 // Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (all in 16-byte units) and the swizzle mode (1: 128 B, 2: 64 B),
-// which must be the one the tensor map wrote the tile with.
+// offsets (all in 16-byte units) and the swizzle mode (1: 128 B, 2: 64 B,
+// 3: 32 B), which must be the one the tensor map wrote the tile with.
 __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo_bytes,
                                                uint32_t sbo_bytes, uint32_t swizzle) {
   return static_cast<uint64_t>((smem_addr(p) >> 4) & 0x3fff) |
@@ -224,7 +224,7 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 }
 
 // wgmma.mma_async, bf16 inputs, fp32 accumulator, M = 64, K = 16, N in
-// {32, 64, 128, 256}.  d holds the 64 x N accumulator in wgmma's layout: in
+// {16, 32, 64, 128, 256}.  d holds the 64 x N accumulator in wgmma's layout: in
 // warp w of the warpgroup, lane l, d[4j + 2r + c] is row 16w + l/4 + 8r,
 // column 8j + 2(l%4) + c.
 // ss (N = 64, 128): d (+)= A . B^T, A (64 x 16) and B (N x 16) K-major in
@@ -233,6 +233,19 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 //     fragment of each warp's 16 rows), B (16 x N) MN-major in shared memory.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
 
 template <>
 struct Wgmma<32> {

@@ -21,7 +21,10 @@
 // tile, head, sequence), heaviest tiles first under causal masking: a
 // producer warp keeps K and V tiles of BK keys (128; 64 at Dh = 256) in a
 // ring of 2-3 stages of shared memory, loaded by TMA (cp.async.bulk.tensor,
-// swizzled, zero-filled past Sq and Skv) and completing on mbarriers; two
+// swizzled, zero-filled past Sq and Skv) and completing on mbarriers (rows
+// are cut into atoms of at most 64 dims, and the swizzle span is an atom's
+// row: 128 B, 64 B at Dh 32, 32 B at Dh 16, where Q K^T is one k-step and
+// P V an N = 16 product); two
 // consumer warpgroups of 64 query rows each, holding the registers that
 // setmaxnreg takes from the producer, compute S = Q K^T with wgmma from
 // shared memory, the online softmax in fp32 registers in wgmma's
@@ -115,9 +118,10 @@ struct Tile {
   static constexpr int BQ = 128;                         // query rows per block
   static constexpr int BK = DH == 256 ? 64 : 128;        // keys per tile
   static constexpr int STAGES = DH == 256 ? 2 : 3;       // K/V ring
-  static constexpr int DA = DH == 32 ? 32 : 64;          // columns per swizzle atom
+  static constexpr int DA = DH < 64 ? DH : 64;          // columns per swizzle atom
   static constexpr int ROWB = DA * 2;                    // bytes of an atom's row
-  static constexpr uint32_t SWZ = DH == 32 ? 2 : 1;      // descriptor mode: 64 B / 128 B
+  // descriptor mode, the swizzle span being the atom's row: 32 B / 64 B / 128 B
+  static constexpr uint32_t SWZ = DH == 16 ? 3 : DH == 32 ? 2 : 1;
   static constexpr int NATOM = DH / DA;
   static constexpr int Q_BYTES = BQ * DH * 2;
   static constexpr int KV_BYTES = BK * DH * 2;
@@ -359,7 +363,9 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int heads, int box_
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                C::SWZ == 1 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                C::SWZ == 1   ? CU_TENSOR_MAP_SWIZZLE_128B
+                : C::SWZ == 2 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -572,20 +578,21 @@ __global__ void __launch_bounds__(128) flash_attention_tf32_kernel(
       split_tf32(sc[4 * j + 1], ah[2], al[2]);
       split_tf32(sc[4 * j + 3], ah[3], al[3]);
       const float* vr = vt + (8 * j + 2 * t) * C::LDV + g;
+      constexpr int NS = DH / 8 < 4 ? DH / 8 : 4;  // dim slices a round (two at Dh 16)
 #pragma unroll
-      for (int n0 = 0; n0 < DH / 8; n0 += 4) {  // four dim slices, term by term
-        uint32_t bh[4][2], bl[4][2];
+      for (int n0 = 0; n0 < DH / 8; n0 += NS) {  // NS dim slices, term by term
+        uint32_t bh[NS][2], bl[NS][2];
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {  // B[key][dim g] = V[8j + 2t (+1)][8(n0 + n) + g]
+        for (int n = 0; n < NS; ++n) {  // B[key][dim g] = V[8j + 2t (+1)][8(n0 + n) + g]
           split_tf32(vr[8 * (n0 + n)], bh[n][0], bl[n][0]);
           split_tf32(vr[C::LDV + 8 * (n0 + n)], bh[n][1], bl[n][1]);
         }
 #pragma unroll
-        for (int n = 0; n < 4; ++n) mma_tf32_1688(o + 4 * (n0 + n), al, bh[n][0], bh[n][1]);
+        for (int n = 0; n < NS; ++n) mma_tf32_1688(o + 4 * (n0 + n), al, bh[n][0], bh[n][1]);
 #pragma unroll
-        for (int n = 0; n < 4; ++n) mma_tf32_1688(o + 4 * (n0 + n), ah, bl[n][0], bl[n][1]);
+        for (int n = 0; n < NS; ++n) mma_tf32_1688(o + 4 * (n0 + n), ah, bl[n][0], bl[n][1]);
 #pragma unroll
-        for (int n = 0; n < 4; ++n) mma_tf32_1688(o + 4 * (n0 + n), ah, bh[n][0], bh[n][1]);
+        for (int n = 0; n < NS; ++n) mma_tf32_1688(o + 4 * (n0 + n), ah, bh[n][0], bh[n][1]);
       }
     }
     __syncthreads();  // this stage is read: the next iteration's copy may overwrite it
@@ -629,7 +636,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, i
 using Launch = cudaError_t (*)(const void*, const void*, const void*, void*, int, const Shape&,
                                cudaStream_t);
 
-int entry(const Launch (&by_dh)[4], const void* q, const void* k, const void* v, void* out, int B,
+int entry(const Launch (&by_dh)[5], const void* q, const void* k, const void* v, void* out, int B,
           int H, int KVH, int Sq, int Skv, int Dh, int causal, int has_window, int window,
           float scale, int device, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -637,7 +644,8 @@ int entry(const Launch (&by_dh)[4], const void* q, const void* k, const void* v,
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || Sq <= 0 || Skv <= 0 || B > 65535 ||
       H > 65535 || align % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int which = Dh == 32 ? 0 : Dh == 64 ? 1 : Dh == 128 ? 2 : Dh == 256 ? 3 : -1;
+  const int which =
+      Dh == 16 ? 0 : Dh == 32 ? 1 : Dh == 64 ? 2 : Dh == 128 ? 3 : Dh == 256 ? 4 : -1;
   if (which < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -646,15 +654,16 @@ int entry(const Launch (&by_dh)[4], const void* q, const void* k, const void* v,
   return static_cast<int>(err);
 }
 
-constexpr Launch kF32[4] = {launch_f32<32>, launch_f32<64>, launch_f32<128>, launch_f32<256>};
-constexpr Launch kBf16[4] = {launch_bf16<32>, launch_bf16<64>, launch_bf16<128>,
-                             launch_bf16<256>};
+constexpr Launch kF32[5] = {launch_f32<16>, launch_f32<32>, launch_f32<64>, launch_f32<128>,
+                            launch_f32<256>};
+constexpr Launch kBf16[5] = {launch_bf16<16>, launch_bf16<32>, launch_bf16<64>,
+                             launch_bf16<128>, launch_bf16<256>};
 
 }  // namespace
 
 // Plain C entries for ctypes.  q and out are (B, H, Sq, Dh), k and v
 // (B, KVH, Skv, Dh), all row-major in one dtype (fp32 or bf16), 16-byte
-// aligned; Dh is 32, 64, 128 or 256 and H a multiple of KVH.  causal and
+// aligned; Dh is 16, 32, 64, 128 or 256 and H a multiple of KVH.  causal and
 // has_window are 0 or 1; window is used only when has_window is 1.
 // Returns the launch's cudaError_t; 0 is success.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out, int B,

@@ -45,6 +45,10 @@
 //   query and accumulator of head hh on the interleaved 16-byte units p,
 //   p + parts, ... of the head dim (a compile-time width), so a score is
 //   Dh / parts FMAs and log2(parts) shuffles.
+// A block holds at most 32 heads and 4096 head-dim elements of accumulators
+// (group * Dh): a larger group (granite-20b's 48 query heads over one KV
+// head of Dh 128) is split into equal chunks of heads, one block each, and
+// each chunk's block reads its KV head's pages again (right, no faster).
 // With one split the block writes the output; otherwise it writes (m, l,
 // acc) in fp32 to scratch the wrapper allocates and a second small kernel,
 // launched by the same C call, combines the splits with the usual rescale.
@@ -65,20 +69,26 @@
 namespace {
 
 constexpr int kStages = 3;                  // ring of chunks in shared memory
-constexpr int kMaxGroupElems = 4096;        // group * head_dim
+constexpr int kMaxGroupElems = 4096;        // heads of a block * head_dim
+constexpr int kMaxGroupHeads = 32;          // heads of a block
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr uint32_t kNanBits = 0x7fc07fc0u;  // NaN as one fp32 and as two bf16
 
+// KVH counts (KV head, head chunk) pairs, the blocks of a sequence's run:
+// a KV head's query heads are split over hsplit blocks of H / KVH heads
+// each, which read the pages' KV head g / hsplit of page_kvh.  Everything
+// but the page reads treats a pair as a KV head of its own.
 struct Shape {
   int H, KVH, page, max_pages, split_tokens, n_split;
   int64_t n_pages;
   float scale2;  // scale * log2(e)
+  int hsplit, page_kvh;
 };
 
-// Issue the copies of tokens [c0, c0 + CHUNK) of KV head g into ks / vs
-// (rows of RS elements): tokens at or past t_end become zeros, a bad page
-// id NaN.
+// Issue the copies of tokens [c0, c0 + CHUNK) of the pages' KV head g into
+// ks / vs (rows of RS elements): tokens at or past t_end become zeros, a bad
+// page id NaN.
 template <typename T, int DH, int RS, int CHUNK, int NT>
 __device__ __forceinline__ void stage_chunk(T* ks, T* vs, const T* __restrict__ k_pages,
                                             const T* __restrict__ v_pages,
@@ -95,7 +105,7 @@ __device__ __forceinline__ void stage_chunk(T* ks, T* vs, const T* __restrict__ 
     const int pid = pos < t_end ? table[lp] : 0;
     if (pos < t_end && pid >= 0 && pid < s.n_pages) {
       const int64_t off =
-          ((static_cast<int64_t>(pid) * s.page + (pos - lp * s.page)) * s.KVH + g) * DH + d0;
+          ((static_cast<int64_t>(pid) * s.page + (pos - lp * s.page)) * s.page_kvh + g) * DH + d0;
       cp_async16(kd, k_pages + off);
       cp_async16(vd, v_pages + off);
     } else {
@@ -187,7 +197,8 @@ __global__ void __launch_bounds__(kMmaThreads) paged_attention_mma_kernel(
   auto stage = [&](int c) {
     T* ks = ring + (c % kStages) * 2 * kMmaChunk * RS;
     stage_chunk<T, DH, RS, kMmaChunk, kMmaThreads>(ks, ks + kMmaChunk * RS, k_pages, v_pages,
-                                                   table, s, g, t_begin + c * kMmaChunk, t_end);
+                                                   table, s, g / s.hsplit,
+                                                   t_begin + c * kMmaChunk, t_end);
   };
 
   // Q as A fragments: rows = heads of the group (zeros past G), k = head dim
@@ -350,9 +361,11 @@ constexpr int kF32Chunk = 32;
 constexpr int kTokPerWarp = kF32Chunk / kF32Warps;
 
 // lanes (hh, p), hh < HPW heads of the group, p < 32 / HPW parts of the head
-// dim; each lane holds E = DH / parts elements, as units of U elements
+// dim; each lane holds E = DH / parts elements, as units of U elements (so
+// 32 / HPW <= DH: at Dh 16 a warp holds at least two heads)
 template <int DH, int HPW>
 struct Lanes {
+  static_assert(32 / HPW <= DH, "a lane holds at least one element of its head");
   static constexpr int PARTS = 32 / HPW;
   static constexpr int E = DH / PARTS;
   static constexpr int U = E < 4 ? E : 4;
@@ -395,8 +408,8 @@ __global__ void __launch_bounds__(kF32Threads, Lanes<DH, HPW>::E <= 32 ? 2 : 1)
   auto stage = [&](int c) {
     float* ks = ring + (c % kStages) * 2 * kF32Chunk * DH;
     stage_chunk<float, DH, DH, kF32Chunk, kF32Threads>(ks, ks + kF32Chunk * DH, k_pages, v_pages,
-                                                       table, s, g, t_begin + c * kF32Chunk,
-                                                       t_end);
+                                                       table, s, g / s.hsplit,
+                                                       t_begin + c * kF32Chunk, t_end);
   };
 
   // this lane's query (zeros for a lane past the group) and state
@@ -571,9 +584,11 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const int
   const size_t smem = ring > merge_bytes(G, DH, kF32Warps) ? ring : merge_bytes(G, DH, kF32Warps);
   // the smallest power of two >= G heads per warp, as many parts as fit
 #define PAGED_F32(HPW)                                                                          \
-  if (G <= HPW)                                                                                 \
-    return launch(paged_attention_f32_kernel<DH, HPW>, kF32Threads, smem, q, k, v, bt, cl, out, \
-                  part, B, s, DH, st);
+  if constexpr (32 / HPW <= DH) {                                                               \
+    if (G <= HPW)                                                                               \
+      return launch(paged_attention_f32_kernel<DH, HPW>, kF32Threads, smem, q, k, v, bt, cl,    \
+                    out, part, B, s, DH, st);                                                   \
+  }
   PAGED_F32(1) PAGED_F32(2) PAGED_F32(4) PAGED_F32(8) PAGED_F32(16)
 #undef PAGED_F32
   if constexpr (DH <= 128) {
@@ -585,24 +600,28 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const int
 }
 
 template <typename T, typename Launch>
-int entry(const Launch (&by_dh)[4], const void* q, const void* k_pages, const void* v_pages,
+int entry(const Launch (&by_dh)[5], const void* q, const void* k_pages, const void* v_pages,
           const int32_t* block_tables, const int32_t* context_lens, void* out, float* part, int B,
-          int H, int KVH, int Dh, int page, int max_pages, int64_t n_pages, int split_tokens,
-          int n_split, float scale, int device, void* stream) {
+          int H, int KVH, int head_chunks, int Dh, int page, int max_pages, int64_t n_pages,
+          int split_tokens, int n_split, float scale, int device, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(k_pages) |
                           reinterpret_cast<uintptr_t>(v_pages) | reinterpret_cast<uintptr_t>(q);
-  if (B <= 0 || B > 65535 || H <= 0 || KVH <= 0 || KVH > 65535 || H % KVH != 0 ||
-      H / KVH * Dh > kMaxGroupElems || page <= 0 || max_pages <= 0 || split_tokens <= 0 ||
+  const int64_t blocks = static_cast<int64_t>(KVH) * head_chunks;  // blocks of a run
+  if (B <= 0 || B > 65535 || H <= 0 || KVH <= 0 || head_chunks <= 0 || blocks > H ||
+      H % blocks != 0 || H / blocks * Dh > kMaxGroupElems || H / blocks > kMaxGroupHeads ||
+      page <= 0 || max_pages <= 0 || split_tokens <= 0 ||
       split_tokens % kMmaChunk != 0 || split_tokens % page != 0 || n_split <= 0 ||
       n_split > 65535 ||
       static_cast<int64_t>(n_split) * split_tokens < static_cast<int64_t>(max_pages) * page ||
       (n_split > 1 && part == nullptr) || align % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int which = Dh == 32 ? 0 : Dh == 64 ? 1 : Dh == 128 ? 2 : Dh == 256 ? 3 : -1;
+  const int which =
+      Dh == 16 ? 0 : Dh == 32 ? 1 : Dh == 64 ? 2 : Dh == 128 ? 3 : Dh == 256 ? 4 : -1;
   if (which < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Shape s{H, KVH, page, max_pages, split_tokens, n_split, n_pages, scale * kLog2e};
+  const Shape s{H,     static_cast<int>(blocks), page, max_pages, split_tokens, n_split, n_pages,
+                scale * kLog2e, head_chunks, KVH};
   err = by_dh[which](static_cast<const T*>(q), static_cast<const T*>(k_pages),
                      static_cast<const T*>(v_pages), block_tables, context_lens,
                      static_cast<T*>(out), part, B, s, static_cast<cudaStream_t>(stream));
@@ -615,36 +634,41 @@ using LaunchF32 = cudaError_t (*)(const float*, const float*, const float*, cons
 using LaunchBf16 = cudaError_t (*)(const __nv_bfloat16*, const __nv_bfloat16*,
                                    const __nv_bfloat16*, const int32_t*, const int32_t*,
                                    __nv_bfloat16*, float*, int, const Shape&, cudaStream_t);
-constexpr LaunchF32 kF32[4] = {launch_f32<32>, launch_f32<64>, launch_f32<128>, launch_f32<256>};
-constexpr LaunchBf16 kBf16[4] = {launch_bf16<32>, launch_bf16<64>, launch_bf16<128>,
-                                 launch_bf16<256>};
+constexpr LaunchF32 kF32[5] = {launch_f32<16>, launch_f32<32>, launch_f32<64>, launch_f32<128>,
+                               launch_f32<256>};
+constexpr LaunchBf16 kBf16[5] = {launch_bf16<16>, launch_bf16<32>, launch_bf16<64>,
+                                 launch_bf16<128>, launch_bf16<256>};
 
 }  // namespace
 
 // Plain C entries for ctypes.  q and out are (B, H, Dh), k_pages and v_pages
 // (n_pages, page, KVH, Dh), all row-major in one dtype (fp32 or bf16), 16-byte
 // aligned; block_tables (B, max_pages) and context_lens (B,) int32.  Dh is
-// 32, 64, 128 or 256, H a multiple of KVH with H / KVH * Dh <= 4096.  Token
-// t of a sequence belongs to split t / split_tokens (split_tokens a multiple
-// of 64 and of page, n_split * split_tokens >= max_pages * page); with
-// n_split > 1, part is fp32 scratch of B * KVH * n_split * (H / KVH) *
-// (Dh + 2) floats.  Launches one kernel, or two with n_split > 1.  Returns
-// the launches' cudaError_t; 0 is success.
+// 16, 32, 64, 128 or 256; each KV head's H / KVH query heads are split over
+// head_chunks blocks of G = H / (KVH * head_chunks) heads, G an integer with
+// G * Dh <= 4096 and G <= 32.  Token t of a sequence belongs to split
+// t / split_tokens (split_tokens a multiple of 64 and of page, n_split *
+// split_tokens >= max_pages * page); with n_split > 1, part is fp32 scratch
+// of B * H * n_split * (Dh + 2) floats.  Launches one kernel, or two with
+// n_split > 1.  Returns the launches' cudaError_t; 0 is success.
 extern "C" int paged_attention_f32(const void* q, const void* k_pages, const void* v_pages,
                                    const int32_t* block_tables, const int32_t* context_lens,
-                                   void* out, float* part, int B, int H, int KVH, int Dh,
-                                   int page, int max_pages, int64_t n_pages, int split_tokens,
-                                   int n_split, float scale, int device, void* stream) {
-  return entry<float>(kF32, q, k_pages, v_pages, block_tables, context_lens, out, part, B, H, KVH, Dh,
-                      page, max_pages, n_pages, split_tokens, n_split, scale, device, stream);
+                                   void* out, float* part, int B, int H, int KVH,
+                                   int head_chunks, int Dh, int page, int max_pages,
+                                   int64_t n_pages, int split_tokens, int n_split, float scale,
+                                   int device, void* stream) {
+  return entry<float>(kF32, q, k_pages, v_pages, block_tables, context_lens, out, part, B, H, KVH,
+                      head_chunks, Dh, page, max_pages, n_pages, split_tokens, n_split, scale,
+                      device, stream);
 }
 
 extern "C" int paged_attention_bf16(const void* q, const void* k_pages, const void* v_pages,
                                     const int32_t* block_tables, const int32_t* context_lens,
-                                    void* out, float* part, int B, int H, int KVH, int Dh,
-                                    int page, int max_pages, int64_t n_pages, int split_tokens,
-                                    int n_split, float scale, int device, void* stream) {
-  return entry<__nv_bfloat16>(kBf16, q, k_pages, v_pages, block_tables, context_lens, out, part, B, H,
-                              KVH, Dh, page, max_pages, n_pages, split_tokens, n_split, scale,
-                              device, stream);
+                                    void* out, float* part, int B, int H, int KVH,
+                                    int head_chunks, int Dh, int page, int max_pages,
+                                    int64_t n_pages, int split_tokens, int n_split, float scale,
+                                    int device, void* stream) {
+  return entry<__nv_bfloat16>(kBf16, q, k_pages, v_pages, block_tables, context_lens, out, part,
+                              B, H, KVH, head_chunks, Dh, page, max_pages, n_pages, split_tokens,
+                              n_split, scale, device, stream);
 }

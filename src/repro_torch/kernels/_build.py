@@ -33,9 +33,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
-# q, k_pages, v_pages, block_tables, context_lens, out, part, B, H, KVH, Dh,
-# page, max_pages, n_pages, split_tokens, n_split, scale, device, stream
-_PAGED = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64, _I, _I, _F, _I, _P)
+# q, k_pages, v_pages, block_tables, context_lens, out, part, B, H, KVH,
+# head_chunks, Dh, page, max_pages, n_pages, split_tokens, n_split, scale,
+# device, stream
+_PAGED = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I64, _I, _I, _F, _I, _P)
 # q, k, v, out, B, H, KVH, Sq, Skv, Dh, causal, has_window, window, scale, device, stream
 _FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P)
 # C entry -> argtypes; every entry returns its launch's cudaError_t as int

@@ -24,7 +24,7 @@ from repro_torch.kernels import _build
 
 launches = 0  # kernel launches since the caller last set it to 0
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtype, device) -> None:

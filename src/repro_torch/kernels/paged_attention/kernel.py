@@ -3,7 +3,9 @@
 
 The kernel replaces the Pallas TPU kernel ``_paged_kernel``: the context
 is split into runs of ``split_tokens`` tokens (``split_tokens`` below), one
-block per (KV head, sequence, run) holding that head's whole query group,
+block per (KV head, sequence, run) holding that head's whole query group
+(or, where the group is too wide for one block's registers, one chunk of
+it: ``head_chunks`` below),
 page ids read from the block table by the block itself, K/V chunks
 pipelined through shared memory, bf16 pages multiplied on the tensor cores
 (P split into two bf16 terms), fp32 pages in IEEE fp32 on the CUDA cores,
@@ -23,8 +25,9 @@ from repro_torch.kernels import _build
 
 launches = 0  # wrapper calls that launched, since the caller last set it to 0
 
-HEAD_DIMS = (32, 64, 128, 256)  # compile-time head widths of the kernel
-MAX_GROUP_ELEMS = 4096  # group * head_dim: the accumulators held in registers
+HEAD_DIMS = (16, 32, 64, 128, 256)  # compile-time head widths of the kernel
+MAX_GROUP_ELEMS = 4096  # heads of a block * head_dim: the accumulators held in registers
+MAX_GROUP_HEADS = 32    # heads of a block
 SMS = 132         # streaming multiprocessors of an H100 SXM
 WAVES = 4         # blocks a sequence's runs aim for, in units of SMS (2 bf16 blocks fit an SM)
 CHUNK = 64        # tokens a block stages in shared memory at a time (bf16)
@@ -48,6 +51,16 @@ def split_tokens(B: int, KVH: int, max_tokens: int, page: int) -> int:
     runs = max(1, -(-WAVES * SMS // max(1, B * KVH)))
     shortest = -(-MIN_SPLIT // unit) * unit
     return max(max_tokens // runs // unit * unit, shortest)
+
+
+def head_chunks(group: int, Dh: int) -> int:
+    """Blocks a KV head's ``group`` query heads are split over: the fewest
+    equal chunks of at most ``MAX_GROUP_HEADS`` heads and
+    ``MAX_GROUP_ELEMS`` accumulators (heads * Dh) each.  Each chunk's block
+    reads its KV head's pages again, so more chunks are right and no faster.
+    Granite-20b's 48 heads over one KV head at Dh 128 take 2 chunks of 24."""
+    most = min(MAX_GROUP_HEADS, MAX_GROUP_ELEMS // Dh)
+    return next(n for n in range(1, group + 1) if group % n == 0 and group // n <= most)
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
@@ -91,28 +104,26 @@ def paged_attention_cuda(
         raise ValueError("paged_attention: block_tables and context_lens need one row per sequence")
     if H % KVH:
         raise ValueError(f"paged_attention: H={H} must be a multiple of KVH={KVH}")
-    group = H // KVH
-    if Dh not in HEAD_DIMS or group * Dh > MAX_GROUP_ELEMS:
-        raise ValueError(
-            f"paged_attention: needs Dh in {HEAD_DIMS} and H/KVH*Dh <= {MAX_GROUP_ELEMS}; "
-            f"got Dh={Dh}, H/KVH={group}")
-    if B > 65535 or KVH > 65535:
-        raise ValueError("paged_attention: B and KVH must be at most 65535")
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"paged_attention: needs Dh in {HEAD_DIMS}, got Dh={Dh}")
+    if B > 65535:
+        raise ValueError("paged_attention: B must be at most 65535")
     out = torch.empty_like(q)
     if B == 0 or H == 0:
         return out
     scale = scale if scale is not None else Dh**-0.5
-    split = split_tokens(B, KVH, max_pages * page, page)
+    chunks = head_chunks(H // KVH, Dh)
+    split = split_tokens(B, KVH * chunks, max_pages * page, page)
     n_split = -(-max_pages * page // split)
-    # partial (acc, then m and l) of every (sequence, KV head, run, head)
-    part = (torch.empty(B * KVH * n_split * group * (Dh + 2), dtype=torch.float32, device=dev)
+    # partial (acc, then m and l) of every (sequence, KV head, head chunk, run, head)
+    part = (torch.empty(B * H * n_split * (Dh + 2), dtype=torch.float32, device=dev)
             if n_split > 1 else None)
     lib = _build.load()
     fn = lib.paged_attention_f32 if q.dtype == torch.float32 else lib.paged_attention_bf16
     err = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
         context_lens.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
-        B, H, KVH, Dh, page, max_pages, P, split, n_split, float(scale), dev.index,
+        B, H, KVH, chunks, Dh, page, max_pages, P, split, n_split, float(scale), dev.index,
         _build.stream(dev),
     )
     _build.check("paged_attention", err)

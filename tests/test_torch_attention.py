@@ -219,6 +219,26 @@ CARD_PAGED = PAGED_SHAPES + [
     (2, 16, 2, 64, 40, 4, 17),
     (2, 32, 4, 128, 600, 16, 300),           # ~19 runs of 256 tokens, permuted tables
 ]
+# the reduced configs' attention (src/repro/configs/yi_6b.py: 4/2 heads,
+# granite_20b.py: 4/1 heads, both Dh 16), prefill causal and windowed
+REDUCED_FLASH = [
+    (2, 4, 2, 200, 200, 16, True, None),
+    (2, 4, 2, 150, 330, 16, True, 64),
+    (1, 4, 1, 257, 257, 16, True, None),
+    (1, 4, 1, 130, 130, 16, False, 40),
+]
+# their decode, and granite-20b's full decode (48 query heads over one KV
+# head of Dh 128: 6 144 accumulators, two head chunks of 24) at B in {1, 8}
+# x context in {512, 2048}, which crosses the split-context path
+REDUCED_PAGED = [
+    (4, 4, 2, 16, 64, 16, 12),
+    (3, 4, 1, 16, 300, 16, 90),
+]
+GRANITE_PAGED = [
+    (B, 48, 1, 128, B * ctx // 16, 16, ctx // 16) for B in (1, 8) for ctx in (512, 2048)
+]
+CARD_FLASH += REDUCED_FLASH
+CARD_PAGED += REDUCED_PAGED + GRANITE_PAGED
 
 
 @pytest.mark.cuda
@@ -315,12 +335,78 @@ def test_paged_kernel_mixes_empty_single_and_multi_run_contexts(dtype, cuda):
 
 @pytest.mark.cuda
 def test_paged_kernel_refuses_head_dims_it_was_not_built_for(cuda):
-    assert paged_kernel.HEAD_DIMS == flash_kernel.HEAD_DIMS
+    assert paged_kernel.HEAD_DIMS == flash_kernel.HEAD_DIMS == (16, 32, 64, 128, 256)
     n0 = paged_kernel.launches
-    q, kp, vp, bt, cl = _paged_inputs(2, 4, 2, 16, 8, 8, 2, seed=1)  # Dh 16
+    q, kp, vp, bt, cl = _paged_inputs(2, 4, 2, 48, 8, 8, 2, seed=1)  # Dh 48
     with pytest.raises(ValueError, match="Dh"):
         paged_attention(*_t(q, kp, vp, bt, cl, device=cuda))
     assert paged_kernel.launches == n0
+
+
+# ------------------------------- the wrappers' argument rules (CPU)
+
+
+@pytest.mark.parametrize("Dh", paged_kernel.HEAD_DIMS)
+@pytest.mark.parametrize("group", [1, 2, 4, 7, 8, 16, 24, 32, 48, 64, 96])
+def test_head_chunks_are_the_fewest_equal_chunks_that_fit(group, Dh):
+    """A KV head's query heads are split into the fewest equal chunks of at
+    most MAX_GROUP_HEADS heads and MAX_GROUP_ELEMS accumulators; query head
+    h lands in block (chunk) h // G' of its sequence, whose pages' KV head
+    is that block's // chunks: the KV head h // group the reference reads."""
+    n = paged_kernel.head_chunks(group, Dh)
+    g = group // n
+    assert group % n == 0 and g <= paged_kernel.MAX_GROUP_HEADS
+    assert g * Dh <= paged_kernel.MAX_GROUP_ELEMS
+    assert all(group % m or group // m > min(paged_kernel.MAX_GROUP_HEADS,
+                                             paged_kernel.MAX_GROUP_ELEMS // Dh)
+               for m in range(1, n))
+    KVH = 3
+    H = KVH * group
+    assert [(h // g) // n for h in range(H)] == [h // group for h in range(H)]
+
+
+def test_granite_and_reduced_configs_need_no_refusal():
+    """The shapes the reference takes and the kernels used to refuse:
+    Dh 16 (every reduced config) in both kernels, and granite-20b's group of
+    48 over Dh 128 in the paged one (two chunks of 24 heads)."""
+    assert 16 in flash_kernel.HEAD_DIMS and 16 in paged_kernel.HEAD_DIMS
+    assert paged_kernel.head_chunks(48, 128) == 2
+    assert paged_kernel.head_chunks(4, 16) == paged_kernel.head_chunks(2, 16) == 1
+    # CPU tensors at those shapes go to the plain versions, never the kernel
+    p0, f0 = paged_kernel.launches, flash_kernel.launches
+    for args in (REDUCED_PAGED[1], GRANITE_PAGED[0]):
+        q, kp, vp, bt, cl = _paged_inputs(*args, seed=3)
+        out = paged_attention(*_t(q, kp, vp, bt, cl))
+        assert out.shape == q.shape and torch.isfinite(out).all()
+        with pytest.raises(ValueError, match="must be on"):
+            paged_kernel.paged_attention_cuda(*_t(q, kp, vp, bt, cl))
+    q, k, v = _flash_inputs(1, 4, 1, 40, 40, 16, seed=2)
+    assert torch.isfinite(flash_attention(*_t(q, k, v))).all()
+    with pytest.raises(ValueError, match="must be on"):
+        flash_kernel.flash_attention_cuda(*_t(q, k, v))
+    assert (paged_kernel.launches, flash_kernel.launches) == (p0, f0)
+
+
+@pytest.mark.parametrize("B,H,KVH,Sq,Skv,Dh,causal,window", REDUCED_FLASH)
+def test_flash_plain_matches_jax_at_the_reduced_configs(B, H, KVH, Sq, Skv, Dh, causal, window,
+                                                        jref):
+    q, k, v = _flash_inputs(B, H, KVH, Sq, Skv, Dh, seed=Sq + Skv)
+    got = flash_attention(*_t(q, k, v), causal=causal, window=window).numpy()
+    np.testing.assert_allclose(got, np.asarray(jref["flash_ref"](q, k, v, causal=causal,
+                                                                 window=window)), **F32)
+    if Sq * Skv * H <= 150 * 330 * 4:  # the interpret-mode Pallas op at the smaller shapes
+        np.testing.assert_allclose(
+            got, np.asarray(jref["flash"](q, k, v, causal=causal, window=window)), **F32)
+
+
+@pytest.mark.parametrize("B,H,KVH,Dh,P,page,max_pages", REDUCED_PAGED + GRANITE_PAGED[:1])
+def test_paged_plain_matches_jax_at_the_reduced_and_granite_shapes(B, H, KVH, Dh, P, page,
+                                                                   max_pages, jref):
+    args = _paged_inputs(B, H, KVH, Dh, P, page, max_pages, seed=P + H)
+    got = paged_attention(*_t(*args)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jref["paged_ref"](*args)), **F32)
+    if H * max_pages <= 4 * 90:  # the interpret-mode Pallas op at the reduced shapes
+        np.testing.assert_allclose(got, np.asarray(jref["paged"](*args)), **F32)
 
 
 # ------------------------------- the kernels' arithmetic, emulated on the CPU

@@ -118,3 +118,53 @@ def test_index_from_reference_rejects_malformed(small_qb, small_graph):
         convert.index_from_reference({**qb, "norms": qb["norms"].astype(np.float64)}, graph)
     with pytest.raises(ValueError, match="adjacency"):
         convert.index_from_reference(qb, {**graph, "adjacency": graph["adjacency"][:10]})
+
+
+@pytest.fixture(scope="module")
+def ref_device_fields(small_qb, small_graph):
+    """The reference ``DeviceIndex``'s fields as NumPy arrays."""
+    pytest.importorskip("jax")
+    from repro.velo.index import from_host
+
+    idx = from_host(small_qb, small_graph)
+    return {f.name: np.asarray(getattr(idx, f.name)) for f in dataclasses.fields(idx)}
+
+
+def test_device_index_from_reference_round_trips(ref_device_fields):
+    got = convert.device_index_from_reference(ref_device_fields, device="cpu")
+    for name, want in ref_device_fields.items():
+        t = getattr(got, name)
+        assert t.device == torch.device("cpu") and t.shape == want.shape, name
+        assert np.array_equal(t.numpy(), want), name
+        want_dtype = {np.float32: torch.float32, np.uint8: torch.uint8,
+                      np.int32: torch.int64}[want.dtype.type]  # ids become int64
+        assert t.dtype == want_dtype, name
+    n = got.n
+    assert n == ref_device_fields["norms"].shape[0] - 1 == 1500
+    # the sentinel row: zero codes, norm 1e30 (inf once squared), ip_bar 1,
+    # ext_lo 0, ext_step 1, adjacency all n
+    assert float(got.norms[n]) == np.float32(1e30) and torch.isinf(got.norms[n] ** 2)
+    assert float(got.ip_bar[n]) == 1.0 and float(got.ext_lo[n]) == 0.0
+    assert float(got.ext_step[n]) == 1.0
+    assert not got.binary_codes[n].any() and not got.ext_codes[n].any()
+    assert bool((got.adjacency[n] == n).all()) and int(got.adjacency.max()) == n
+    assert 0 <= int(got.medoid) < n
+
+
+def test_device_index_from_reference_rejects_malformed(ref_device_fields):
+    f = ref_device_fields
+    bad = [
+        ("missing", {k: v for k, v in f.items() if k != "ip_bar"}),
+        ("unknown", {**f, "extra": np.zeros(3)}),
+        ("float32", {**f, "norms": f["norms"].astype(np.float64)}),
+        ("int32", {**f, "adjacency": f["adjacency"].astype(np.int64)}),
+        ("ext_codes", {**f, "ext_codes": f["ext_codes"][:-1]}),
+        ("rotation", {**f, "rotation": f["rotation"][:, :-1]}),
+        ("adjacency", {**f, "adjacency": np.where(f["adjacency"] == 3, -1, f["adjacency"])}),
+        ("adjacency", {**f, "adjacency": f["adjacency"][:-1]}),
+        ("medoid", {**f, "medoid": np.int32(1500)}),
+        ("sentinel", {**f, "norms": np.concatenate([f["norms"][:-1], [np.float32(2.0)]])}),
+    ]
+    for match, fields in bad:
+        with pytest.raises(ValueError, match=match):
+            convert.device_index_from_reference(fields, device="cpu")

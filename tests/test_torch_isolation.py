@@ -39,7 +39,12 @@ assert out["distance_backend"] == "torch" and out["recall@k"] > 0.5, out
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m, mod in sys.modules.items() if mod is not None)
 print("modules", len(names), "recall", out["recall@k"])
+print(" ".join(names))
 """
+
+# modules added after the first slice, which the walk above must import
+NEW_MODULES = ("core.workload", "core.serving", "velo.index", "velo.batch_search",
+               "velo.scan_search", "velo.dist_search")
 
 _IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|,|$)|from\s+repro(\.|\s))",
                      re.MULTILINE)
@@ -52,11 +57,14 @@ def test_port_runs_with_jax_and_repro_poisoned():
     assert proc.returncode == 0, proc.stderr[-4000:]
     n_modules = int(proc.stdout.split()[1])
     assert n_modules >= 30, proc.stdout
+    walked = set(proc.stdout.splitlines()[1].split())
+    assert {f"repro_torch.{m}" for m in NEW_MODULES} <= walked, proc.stdout
 
 
 def test_no_jax_or_repro_import_in_the_port_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert all(f.exists() for f in files)
+    assert {PORT / (m.replace(".", "/") + ".py") for m in NEW_MODULES} <= set(files)
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _IMPORT.finditer(f.read_text())]
     assert hits == []
