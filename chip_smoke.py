@@ -54,7 +54,18 @@ Phases (each one that fails ends the run with a non-zero exit):
               step (tables from PagedKVPool.batch_block_tables); 1 024 pages,
               oversubscribed (clock eviction and swap-in), then 60 000 pages,
               one layer's share of the card, which the traffic fits
-  9. report   one JSON line of per-kernel numbers, then the card line and the
+  9. verify   the protocol verifier and the serve CLI on phase 5's index:
+              velo with the HBM tier (device_beam off and on) and a 2-tenant
+              plane (shared pool, quotas, the tier) run with
+              verify_protocol on must equal their unverified runs with no
+              violation; the schedule explorer at the JAX package's fixture
+              (five algorithms + the pure-EDF plane, 5 schedules) and at
+              full width (velo, 50 queries, seeds 0-3, unfused and fused)
+              must be schedule-invariant with ties permuted, and reports
+              the calls on binary_ip's tensor-core path;
+              ``repro_torch.launch.serve`` at 2 000 x 128 must reach
+              recall@10 0.6 with both distance kernels launched
+ 10. report   one JSON line of per-kernel numbers, then the card line and the
               final {"ok": true, ...} line
 
 Imports torch, numpy and the port (src/repro_torch) only.
@@ -77,6 +88,7 @@ from torch.nn.functional import scaled_dot_product_attention as sdpa
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.analysis import explore  # noqa: E402
 from repro_torch.core import baselines, dataset, distance, serving, vamana, workload  # noqa: E402
 from repro_torch.core import beam as beam_mod  # noqa: E402
 from repro_torch.core.scheduling import SlaPlan  # noqa: E402
@@ -95,6 +107,7 @@ from repro_torch.kernels.int4_dist import ref as i4_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pa_kernel  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.serving.kv_pool import PagedKVPool  # noqa: E402
 from repro_torch.serving.scheduler import CacheAwareScheduler, ServeRequest  # noqa: E402
 from repro_torch.velo import batch_search, scan_search  # noqa: E402
@@ -160,11 +173,13 @@ SIFT1M_FLUSH = dict(shape="B=8 N=256 d=128 table=1000000 gathered", dtype="float
 KERNELS = {
     "binary_ip": dict(source="src/repro_torch/csrc/binary_ip.cu",
                       replaces="src/repro/kernels/binary_ip/kernel.py:28",
-                      counter=bip_kernel, paths=("search", "serving plane", "velo device"),
+                      counter=bip_kernel,
+                      paths=("search", "serving plane", "velo device", "verify"),
                       main=dict(SIFT1M_FLUSH, entry="estimate_dist2")),
     "int4_dist": dict(source="src/repro_torch/csrc/int4_dist.cu",
                       replaces="src/repro/kernels/int4_dist/kernel.py:27",
-                      counter=i4_kernel, paths=("search", "serving plane"), main=SIFT1M_FLUSH),
+                      counter=i4_kernel, paths=("search", "serving plane", "verify"),
+                      main=SIFT1M_FLUSH),
     # a decode step of 8 sequences x 2048 tokens, bf16 pages
     "paged_attention": dict(source="src/repro_torch/csrc/paged_attention.cu",
                             replaces="src/repro/kernels/paged_attention/kernel.py:29",
@@ -1169,6 +1184,160 @@ def phase_kv_serve(dev, card: str, n_pages: int, thrash: bool) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 9
+
+
+# the JAX package's explorer at its own fixture on the CPU (``python -m
+# repro.analysis --explore``: 600 x 32, 24 queries, seeds 1-5), ties summed
+# over the schedules as its report prints them: (worker, event, slack)
+REF_TIES = {"velo": (122, 2940, 0), "diskann": (48, 42, 0), "starling": (42, 36, 0),
+            "pipeann": (558, 936, 0), "inmemory": (6, 0, 0), "sla-edf": (156, 2866, 1127)}
+VERIFY_FULL_QUERIES = 50  # the full-width explorer leg's queries
+
+
+def _tie_sums(reports) -> tuple[int, int, int]:
+    return tuple(sum(r.ties.get(kind, 0) for r in reports) for kind in ("worker", "event", "slack"))
+
+
+def phase_verify(ds, graph, qb, card: str) -> dict:
+    """The protocol verifier and the serve CLI on the card, on phase 5's
+    index: verified velo (HBM tier on, device_beam off and on) and a verified
+    2-tenant serving plane equal their unverified runs with no violation; the
+    schedule explorer at the JAX package's fixture (all five algorithms and
+    the pure-EDF plane) and at full width (velo, HBM tier on, cbs off) is
+    schedule-invariant with ties permuted; ``launch.serve`` reaches the
+    quickstart's recall.  Every run is the torch engine on the card."""
+    n_q = len(ds.queries)
+    wall: dict[str, float] = {}
+    launches: dict[str, dict[str, int]] = {}
+
+    def step(name, fn):
+        reset_launches()
+        bip_kernel.tensor_core_launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        launches[name] = dict(read_launches(), binary_ip_tensor_core=bip_kernel.tensor_core_launches)
+        print(f"verify: {name}: {wall[name]:.2f} s, launches {json.dumps(launches[name])}")
+        return res
+
+    # 1. verified velo against unverified, device_beam off and on
+    def velo(device_beam, verify):
+        cfg = baselines.SystemConfig(
+            buffer_ratio=0.2, batch_size=8, distance_backend="torch", fuse=True,
+            device_beam=device_beam, hbm_tier=True, verify_protocol=verify,
+            params=baselines.SearchParams(L=64, W=4))
+        system = baselines.build_system("velo", ds.base, graph, qb, cfg)
+        return system, system.run(ds.queries)[0]
+
+    velo_out = []
+    for beam in (False, True):
+        plain, want = step(f"velo device_beam={beam}", lambda: velo(beam, False))
+        system, got = step(f"velo device_beam={beam} verified", lambda: velo(beam, True))
+        ck = system.checker
+        require(system.ctx.dist.name == "torch" and system.ctx.dist.device.type == "cuda",
+                "verify: velo must run the torch engine on the card")
+        equal = _same_results(want, got, dists=True)
+        hbm_calls = sum(v for k, v in ck.calls.items() if k.startswith("hbm."))
+        velo_out.append(dict(device_beam=beam, equal=equal, violations=len(ck.violations),
+                             flushes=ck.flushes, hbm_calls=hbm_calls, calls=dict(ck.calls)))
+        require(equal, f"verify: verified velo (device_beam={beam}) differs from the unverified run")
+        require(ck.ok() and ck.flushes > 0 and hbm_calls > 0,
+                f"verify: velo device_beam={beam}: {len(ck.violations)} violations, "
+                f"{ck.flushes} flushes, {hbm_calls} hbm calls")
+
+    # 2. a verified 2-tenant plane on a shared pool with quotas and the tier
+    specs = [serving.TenantSpec.from_dataset(
+        f"t{i}", ds, graph, qb, system="velo",
+        params=baselines.SearchParams(L=64, W=4, prefetch=False)) for i in range(2)]
+    wl = workload.zipfian_mix([n_q, n_q], n_q, s=1.5, seed=0)
+
+    def plane(verify):
+        cfg = baselines.SystemConfig(buffer_ratio=0.2, batch_size=8, distance_backend="torch",
+                                     fuse=True, tenant_quota=0.6, hbm_tier=True,
+                                     verify_protocol=verify)
+        p = serving.ServingPlane(specs, cfg, shared_pool=True)
+        return p, p.run(wl)
+
+    _, pwant = step("plane 2 tenants", lambda: plane(False))
+    pl, pgot = step("plane 2 tenants verified", lambda: plane(True))
+    plane_equal = all(_same_results(a.results, b.results, dists=True)
+                      for a, b in zip(pwant.tenants, pgot.tenants))
+    require(plane_equal, "verify: the verified serving plane differs from the unverified one")
+    require(pl.checker.ok() and pl.checker.flushes > 0,
+            f"verify: plane: {len(pl.checker.violations)} violations, {pl.checker.flushes} flushes")
+    plane_out = dict(equal=plane_equal, violations=len(pl.checker.violations),
+                     flushes=pl.checker.flushes, calls=dict(pl.checker.calls),
+                     ops=len(wl.tenant_ids), hbm=pl.hbm is not None)
+
+    # 3. the explorer at the JAX package's fixture: 5 algorithms + sla-edf
+    reports = step("explore fixture", lambda: {**explore.smoke(device="cuda"),
+                                               **explore.smoke_sla(device="cuda")})
+    legs = {}
+    for name, reps in reports.items():
+        ties = _tie_sums(reps)
+        legs[name] = dict(schedules=len(reps) - 1, invariant=all(r.equal for r in reps),
+                          ties=ties, reference_ties=REF_TIES[name])
+        require(legs[name]["invariant"], f"verify: explorer leg {name} is not schedule-invariant: "
+                f"{[r.first_diff for r in reps if not r.equal][:1]}")
+        require(all(t > 0 for t, ref in zip(ties, REF_TIES[name]) if ref > 0),
+                f"verify: explorer leg {name}: ties {ties}, the JAX package's {REF_TIES[name]}")
+
+    # 4. the explorer at full width: velo on phase 5's index, unfused (the
+    # smoke's own dispatch) and fused (a permuted schedule changes which
+    # queries share a flush), every estimate call's (B, N) recorded to see
+    # how far the calls are from binary_ip's tensor-core threshold
+    full = (types.SimpleNamespace(base=ds.base, queries=ds.queries[:VERIFY_FULL_QUERIES]), graph, qb)
+    estimate = distance.estimate_dist2
+    full_out = {}
+    for fuse in (False, True):
+        shapes: list[tuple[int, int]] = []
+
+        def recorded(q, codes, norms, ip_bar, ids=None, _shapes=shapes):
+            _shapes.append((q.shape[0], codes.shape[0] if ids is None else ids.shape[0]))
+            return estimate(q, codes, norms, ip_bar, ids)
+
+        def run_under(policy, _fuse=fuse):
+            return explore.run_system_under(
+                policy, "velo", hbm_tier=True, fixture=full, device="cuda", fuse=_fuse,
+                params=baselines.SearchParams(L=64, W=4, cbs=False))
+
+        name = f"explore full width fuse={fuse}"
+        distance.estimate_dist2 = recorded
+        try:
+            reps = step(name, lambda: explore.explore(run_under, [1, 2, 3]))
+        finally:
+            distance.estimate_dist2 = estimate
+        leg = dict(queries=VERIFY_FULL_QUERIES, fuse=fuse, seeds=[r.seed for r in reps],
+                   invariant=all(r.equal for r in reps), ties=_tie_sums(reps),
+                   estimate_calls=len(shapes), max_B=max(b for b, _ in shapes),
+                   max_N=max(n for _, n in shapes),
+                   tensor_core_threshold=bip_kernel.TENSOR_CORE_MIN_ROWS,
+                   tensor_core_calls=launches[name]["binary_ip_tensor_core"])
+        full_out[f"fuse={fuse}"] = leg
+        require(leg["invariant"], f"verify: full-width velo (fuse={fuse}) is not "
+                f"schedule-invariant: {[r.first_diff for r in reps if not r.equal][:1]}")
+        require(sum(leg["ties"]) > 0, f"verify: the full-width explorer (fuse={fuse}) "
+                f"permuted no tie")
+
+    # 5. the serve CLI on the card
+    cli = step("launch.serve", lambda: serve.main(["--n", "2000", "--d", "128",
+                                                   "--queries", "100"]))
+    cli_l = launches["launch.serve"]
+    require(cli["distance_backend"] == "torch" and cli_l["binary_ip"] > 0
+            and cli_l["int4_dist"] > 0 and cli["recall@k"] >= 0.6,
+            f"verify: launch.serve: backend {cli['distance_backend']}, launches {cli_l}, "
+            f"recall {cli['recall@k']}")
+
+    total = {n: sum(v[n] for v in launches.values()) for n in KERNELS}
+    out = dict(card=card, queries=n_q, velo=velo_out, plane=plane_out, explore_fixture=legs,
+               explore_full=full_out, serve=dict(cli, argv="--n 2000 --d 128 --queries 100"),
+               wall_s=wall, launches_by_step=launches, launches=total)
+    print("verify:", json.dumps(out, default=float))
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1220,6 +1389,8 @@ def main() -> int:
     kv = [phase_kv_serve(dev, card, KV_CUT_PAGES, thrash=True),
           phase_kv_serve(dev, card, KV_LAYER_PAGES, thrash=False)]
     phase_s["kv serve"] = time.perf_counter() - t0 - sum(phase_s.values())
+    verify = phase_verify(ds, graph, qb, card)
+    phase_s["verify"] = time.perf_counter() - t0 - sum(phase_s.values())
     print(f"phase seconds on {card}:", json.dumps(phase_s))
 
     # each phase's launches by kernel, summed over that phase's main runs
@@ -1228,6 +1399,7 @@ def main() -> int:
         "serving plane": plane["launches"],
         "velo device": velo["launches"],
         "kv serve": {n: sum(r["launches"][n] for r in kv) for n in KERNELS},
+        "verify": verify["launches"],
         "attention kernels": attn_launches,
     }
     report = []
@@ -1248,7 +1420,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=card, kernels=report, launches_by_phase=path_launches, shapes=rows,
              attention=attn_rows, tables=tables, search=search, serving_plane=plane,
-             velo_device=velo, kv_serve=kv, phase_s=phase_s, sass=sass), indent=1))
+             velo_device=velo, kv_serve=kv, verify=verify, phase_s=phase_s, sass=sass),
+        indent=1, default=float))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -244,9 +244,14 @@ class SystemConfig:
                                   # tenant quota / fuse_rows steering).  Off
                                   # = pure EDF, the schedule-invariant mode
                                   # the explorer covers.
-    verify_protocol: bool = False  # the dynamic protocol checker; this
-                                  # package does not have it yet, so True
-                                  # raises NotImplementedError
+    verify_protocol: bool = False  # arm the dynamic protocol checker
+                                  # (repro_torch.analysis.protocol): validates
+                                  # every pool/HBM slot transition against the
+                                  # Fig. 5 spec, runs cheap invariants at
+                                  # each flush boundary, and raises at the
+                                  # end of run() on any violation.  Purely
+                                  # observational and host-only: results are
+                                  # bitwise identical to an unverified run.
 
 
 @dataclasses.dataclass
@@ -261,6 +266,7 @@ class System:
     store: object
     cost: CostModel
     hbm: object | None = None  # HbmTier when the device record tier is on
+    checker: object | None = None  # ProtocolChecker when verify_protocol is on
     shard_plan: object | None = None  # sharding.ShardPlan when n_shards is set
 
     def make_coroutine(self, qid: int, q: np.ndarray):
@@ -304,9 +310,12 @@ class System:
             scheduler=self.config.scheduler or "rr",
             hbm=self.hbm,
             schedule=schedule,
+            verify=self.checker,
             shards=shards,
             sla=sla,
         )
+        if self.checker is not None:
+            self.checker.raise_if_violations()
         hits, misses = self.ctx.accessor.stats()
         stats.cache_hits = hits - hits0
         stats.cache_misses = misses - misses0
@@ -394,11 +403,6 @@ def build_system(
         ),
     )
     cost = cost or CostModel()
-    if config.verify_protocol:
-        raise NotImplementedError(
-            "verify_protocol needs the protocol checker, which is not ported "
-            "yet (ROADMAP queue A, the analysis item)"
-        )
     # ONE engine per system (its name keys the calibration lookup)
     dist_engine = distance_mod.get_engine(
         config.distance_backend, resident=config.resident_plane,
@@ -521,6 +525,23 @@ def build_system(
                       n_slots=max(8, min(int(slots), n)), R=graph.R)
         acc.hbm = hbm
         acc.pool.on_publish = hbm.note_publish
+    checker = None
+    if config.verify_protocol:
+        # lazy import: core stays import-independent of the analysis layer
+        from repro_torch.analysis.protocol import ProtocolChecker
+
+        checker = ProtocolChecker()
+        if hbm is not None:
+            # order matters: shadow the tier's entry points FIRST, then
+            # re-point the pool's publish hook at the (now wrapped) staging
+            # method, then let watch_pool chain its double-publish probe in
+            # front of it — otherwise the pool keeps calling the raw bound
+            # method captured above and staging goes unobserved
+            checker.watch_hbm(hbm)
+            acc.pool.on_publish = hbm.note_publish
+        pool = getattr(acc, "pool", None)
+        if pool is not None:
+            checker.watch_pool(pool)
     ctx = SearchContext(
         index=index,
         qb=qb,
@@ -543,6 +564,7 @@ def build_system(
         store=index.store,
         cost=cost,
         hbm=hbm,
+        checker=checker,
         shard_plan=shard_plan,
     )
 

@@ -417,9 +417,25 @@ class ServingPlane:
                 vid_base=vid_bases[i], page_base=page_bases[i],
             ))
 
-        # the dynamic protocol checker (SystemConfig.verify_protocol) is not
-        # in this package yet: build_system above already raised for it
+        # ---- dynamic protocol checker (SystemConfig.verify_protocol) ------
+        # wired AFTER the tenant rewire so static-partition per-tenant pools
+        # exist to be watched too; the hbm-first / re-point-hook / pool-last
+        # order is the same rule build_system follows
         self.checker = None
+        if self.config.verify_protocol:
+            from repro_torch.analysis.protocol import ProtocolChecker
+
+            self.checker = ProtocolChecker()
+            if self.hbm is not None:
+                self.checker.watch_hbm(self.hbm)
+                if self.pool is not None:
+                    self.pool.on_publish = self.hbm.note_publish
+            if self.pool is not None:
+                self.checker.watch_pool(self.pool)
+            for t in self.tenants:
+                p = getattr(t.accessor, "pool", None)
+                if isinstance(p, RecordBufferPool) and p is not self.pool:
+                    self.checker.watch_pool(p)
 
         # sync tenants (diskann/starling/pipeann are B=1 systems) clamp the
         # shared engine's per-worker batch: one scheduler serves everyone

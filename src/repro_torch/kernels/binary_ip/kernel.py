@@ -10,7 +10,8 @@ the search path's shape a call is latency, so the wrappers check each
 tensor in one pass of plain attributes (``get_device`` gives an int, no
 ``torch.device`` is built), take the raw stream from ``_build.stream``,
 allocate the output with ``torch.empty`` and launch on the current stream
-without synchronising.  Both entries count in ``launches``.
+without synchronising.  Both entries count in ``launches``, and the calls
+that took the tensor-core path also in ``tensor_core_launches``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0  # kernel launches of either entry since the caller last set it to 0
+tensor_core_launches = 0  # of those, the ones on the tensor-core path
 
 # Calls of two queries or more over at least this many rows take the
 # tensor-core path (where d % 32 == 0 and the codes are 4-byte aligned);
@@ -87,7 +89,7 @@ def binary_ip_cuda(
     """(B, N) float32 <q_b, sign(codes[ids[n]])> on the card (N = T when
     ``ids`` is None).  An id outside ``[0, T)`` yields NaN in its column.
     ``tensor_cores`` as in ``tensor_core_path``."""
-    global launches
+    global launches, tensor_core_launches
     index, B, d, T, N = _checked(q, codes, ids, ())
     codes_ptr = codes.data_ptr()
     tc = tensor_core_path(B, N, d, codes_ptr, tensor_cores)
@@ -102,6 +104,7 @@ def binary_ip_cuda(
     if err:
         _build.check("binary_ip", err)
     launches += 1
+    tensor_core_launches += tc
     return out
 
 
@@ -117,7 +120,7 @@ def estimate_dist2_cuda(
     codes[ids], norms[ids], ip_bar[ids])`` on the card, in one launch.  An
     id outside ``[0, T)`` yields NaN in its column.  ``tensor_cores`` as in
     ``tensor_core_path``."""
-    global launches
+    global launches, tensor_core_launches
     index, B, d, T, N = _checked(q, codes, ids, (("norms", norms, _F32, 1),
                                                  ("ip_bar", ip_bar, _F32, 1)))
     codes_ptr = codes.data_ptr()
@@ -134,4 +137,5 @@ def estimate_dist2_cuda(
     if err:
         _build.check("binary_ip", err)
     launches += 1
+    tensor_core_launches += tc
     return out

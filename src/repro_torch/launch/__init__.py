@@ -1,0 +1,1 @@
+"""Launch layer: the serving CLI (``python -m repro_torch.launch.serve``)."""

@@ -44,7 +44,9 @@ print(" ".join(names))
 
 # modules added after the first slice, which the walk above must import
 NEW_MODULES = ("core.workload", "core.serving", "velo.index", "velo.batch_search",
-               "velo.scan_search", "velo.dist_search")
+               "velo.scan_search", "velo.dist_search", "analysis.registry",
+               "analysis.spec", "analysis.lint", "analysis.protocol",
+               "analysis.explore", "analysis.__main__", "launch.serve")
 
 _IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|,|$)|from\s+repro(\.|\s))",
                      re.MULTILINE)

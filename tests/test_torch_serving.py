@@ -326,7 +326,27 @@ def test_workload_for_more_tenants_than_the_plane_is_refused(tenant_data):
         plane.run(workload_mod.uniform_mix([30, 30], 10, seed=0))
 
 
-def test_verify_protocol_is_not_ported(tenant_data):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingPlane([_spec(tenant_data, 0, "velo")],
-                     _cfg(buffer_ratio=0.2, batch_size=4, verify_protocol=True))
+@pytest.mark.parametrize("shared", [True, False])
+def test_verify_protocol_is_bitwise_inert(tenant_data, shared):
+    """A plane with ``verify_protocol=True`` arms one checker over the shared
+    pool (or every tenant's own pool under a static partition), runs with no
+    violation, and returns the unverified plane's results bit for bit and
+    the verified reference plane's ids, hops and reads."""
+    def run(verify, ref=False):
+        specs = [_spec(tenant_data, i, "velo", ref=ref) for i in range(2)]
+        cfg = _cfg(ref_baselines if ref else baselines, buffer_ratio=0.2, batch_size=4,
+                   tenant_quota=0.6 if shared else None, verify_protocol=verify)
+        plane = (ref_serving.ServingPlane if ref else ServingPlane)(specs, cfg,
+                                                                     shared_pool=shared)
+        wl = (ref_workload if ref else workload_mod).zipfian_mix([30, 30], 40, s=1.5, seed=0)
+        return plane, plane.run(wl)
+
+    _, plain = run(False)
+    plane, got = run(True)
+    ref_plane, want = run(True, ref=True)
+    assert plane.checker is not None and plane.checker.ok() and plane.checker.flushes > 0
+    assert len(plane.checker._pools) == (1 if shared else 2)
+    ref_plane.checker.raise_if_violations()
+    for t0, t1, tr in zip(plain.tenants, got.tenants, want.tenants):
+        _assert_bitwise(t0.results, t1.results, f"verified shared={shared}")
+        _assert_matches_reference(tr.results, t1.results, f"reference shared={shared}")

@@ -134,8 +134,26 @@ def test_quickstart_flow_at_fixture_size():
     assert out["recall@k"] > 0.6 and out["qps"] > 0 and out["dist_uploads"] == 1
 
 
-def test_verify_protocol_is_not_ported(small_ds, carried):
+@pytest.mark.parametrize("hbm_tier", [False, True])
+def test_verify_protocol_is_bitwise_inert(hbm_tier, small_ds, carried):
+    """``verify_protocol=True`` builds the system with its protocol checker
+    armed; the verified run returns the unverified run's ids, dists, hops
+    and reads exactly, with no violation, and the checker saw the engine's
+    flush boundaries and the pool's (and the HBM tier's) traffic."""
     qb, graph = carried
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        baselines.build_system("velo", small_ds.base, graph, qb,
-                               _cfg(baselines, "torch", device="cpu", verify_protocol=True))
+
+    def run(verify):
+        sys_ = baselines.build_system("velo", small_ds.base, graph, qb, _cfg(
+            baselines, "torch", device="cpu", fuse=True, hbm_tier=hbm_tier,
+            verify_protocol=verify))
+        return sys_, sys_.run(small_ds.queries[:N_QUERIES])[0]
+
+    plain, want = run(False)
+    sys_, got = run(True)
+    assert plain.checker is None and sys_.checker is not None
+    _assert_same_results(want, got, f"verified hbm={hbm_tier}")
+    for r0, r1 in zip(want, got):
+        np.testing.assert_array_equal(r0.dists, r1.dists)
+    assert sys_.checker.ok() and sys_.checker.flushes > 0
+    assert sys_.checker.calls.get("begin_load", 0) > 0
+    assert any(k.startswith("hbm.") for k in sys_.checker.calls) == hbm_tier
