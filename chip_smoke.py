@@ -65,7 +65,17 @@ Phases (each one that fails ends the run with a non-zero exit):
               the calls on binary_ip's tensor-core path;
               ``repro_torch.launch.serve`` at 2 000 x 128 must reach
               recall@10 0.6 with both distance kernels launched
- 10. report   one JSON line of per-kernel numbers, then the card line and the
+ 10. lm serve the port's LM serving path (configs, models): the reduced Yi-6B
+              config, prefill plus 8 greedy decode steps on the card against
+              the port on the CPU on the same weights (fp32 and bf16: tokens
+              identical, logits within LM_TOL), then Yi-6B at full width in
+              bf16 serving 4 requests of 2 048 prompt tokens: prefill (32
+              flash_attention launches, each held against attention_ref on
+              its own inputs), 16 greedy decode steps each retrieving top-5
+              from phase 5's index through velo.batch_search; reports
+              decode-continues-prefill, prefill / decode / retrieval times,
+              flash's share of the prefill's device time, peak memory
+ 11. report   one JSON line of per-kernel numbers, then the card line and the
               final {"ok": true, ...} line
 
 Imports torch, numpy and the port (src/repro_torch) only.
@@ -73,6 +83,8 @@ Imports torch, numpy and the port (src/repro_torch) only.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -88,6 +100,7 @@ from torch.nn.functional import scaled_dot_product_attention as sdpa
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.analysis import explore  # noqa: E402
 from repro_torch.core import baselines, dataset, distance, serving, vamana, workload  # noqa: E402
 from repro_torch.core import beam as beam_mod  # noqa: E402
@@ -108,6 +121,8 @@ from repro_torch.kernels.paged_attention import kernel as pa_kernel  # noqa: E40
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.serving.kv_pool import PagedKVPool  # noqa: E402
 from repro_torch.serving.scheduler import CacheAwareScheduler, ServeRequest  # noqa: E402
 from repro_torch.velo import batch_search, scan_search  # noqa: E402
@@ -170,6 +185,7 @@ HOST_TOL = dict(rtol=2e-3, atol=2e-3)
 # of the row whose times the report carries (binary_ip's: the fused
 # estimate, which is what the search path launches)
 SIFT1M_FLUSH = dict(shape="B=8 N=256 d=128 table=1000000 gathered", dtype="float32")
+LM_FLASH_SHAPE = "yi-6b lm serve prefill B=4 S=2048"
 KERNELS = {
     "binary_ip": dict(source="src/repro_torch/csrc/binary_ip.cu",
                       replaces="src/repro/kernels/binary_ip/kernel.py:28",
@@ -185,11 +201,12 @@ KERNELS = {
                             replaces="src/repro/kernels/paged_attention/kernel.py:29",
                             counter=pa_kernel, paths=("kv serve",),
                             main=dict(shape="B=8 ctx=2048", dtype="bfloat16")),
-    # no system path calls it: its launches are phase 3's
+    # the LM serving path's prefill attention: Yi-6B, 4 requests x 2 048
+    # tokens, bf16 (its launches: phase 3's and the lm serve phase's)
     "flash_attention": dict(source="src/repro_torch/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention/kernel.py:33",
-                            counter=fa_kernel, paths=("attention kernels",),
-                            main=dict(shape="yi-6b prefill S=2048", dtype="bfloat16")),
+                            counter=fa_kernel, paths=("attention kernels", "lm serve"),
+                            main=dict(shape=LM_FLASH_SHAPE, dtype="bfloat16")),
 }
 # kv serve: the pool cut so that 16 live requests of ~1 280 tokens (~1 300
 # pages) oversubscribe it, and one layer's share of an 80 GB card for Yi-6B
@@ -648,6 +665,9 @@ def phase_attention(dev, card: str) -> tuple[list[dict], dict[str, int]]:
     yi = dict(B=1, H=YI["H"], KVH=YI["KVH"], Dh=YI["Dh"], causal=True, window=None)
     for S in (512, 2048):
         rows.append(check_flash(dev, gen, f"yi-6b prefill S={S}", S=S, dtype=torch.bfloat16, **yi))
+    # the lm serve phase's call: 4 requests of 2 048 tokens
+    rows.append(check_flash(dev, gen, LM_FLASH_SHAPE, **dict(yi, B=4), S=2048,
+                            dtype=torch.bfloat16))
     rows.append(check_flash(dev, gen, "gemma3-1b local S=2048 w=512", 1, 4, 1, 2048, 256,
                             True, 512, torch.bfloat16))
     rows.append(check_flash(dev, gen, "whisper-small encoder S=1500", 1, 12, 12, 1500, 64,
@@ -1338,6 +1358,227 @@ def phase_verify(ds, graph, qb, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 10
+
+
+# the lm serve phase: Yi-6B at its published widths (src/repro/configs/yi_6b.py,
+# bf16), 4 requests of 2 048 prompt tokens, 16 greedy decode steps, each
+# retrieving top-5 from phase 5's index; the reduced config's card-vs-CPU
+# runs: 4 prompts of 64 tokens, 8 decode steps
+LM_B, LM_PROMPT, LM_STEPS, LM_TOPK = 4, 2048, 16, 5
+LM_REDUCED_PROMPT, LM_REDUCED_STEPS = 64, 8
+# the reduced config on the card against the port on the CPU, same weights:
+# logits by dtype (fp32 sums in another order; bf16 rounding of the layers'
+# outputs carried through the stack)
+LM_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+class FlashRecorder:
+    """While active, every flash_attention call of the model (through
+    ``fa_ops.flash_attention``, which ``models.layers`` calls) is held
+    against ``attention_ref`` on its own q, k, v at phase 3's bar; the
+    errors are kept in call order."""
+
+    def __init__(self):
+        self.errors: list[float] = []
+        self.shapes: list[tuple] = []
+        self._real = fa_ops.flash_attention
+
+    def _call(self, q, k, v, causal=True, window=None, scale=None):
+        out = self._real(q, k, v, causal=causal, window=window, scale=scale)
+        want = fa_ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+        require(torch.allclose(out.float(), want.float(), **ATTN_TOL[q.dtype]),
+                f"lm serve: flash_attention call {len(self.errors)} disagrees with attention_ref")
+        self.errors.append(float((out.float() - want.float()).abs().max()))
+        self.shapes.append((tuple(q.shape), tuple(k.shape), causal, window, str(q.dtype)[6:]))
+        return out
+
+    def __enter__(self):
+        fa_ops.flash_attention = self._call
+        return self
+
+    def __exit__(self, *exc):
+        fa_ops.flash_attention = self._real
+
+
+def _greedy(model, params, tokens, steps, retrieve=None, feed=None):
+    """prefill, the prefill caches loaded into decode caches of prompt +
+    steps slots, then ``steps`` decode steps, step i consuming the argmax of
+    the logits before it (greedy) or ``feed[i]`` when given (each step
+    followed by ``retrieve(consumed token)`` when given).  Returns the
+    prefill logits, per-step logits, the argmax after the prefill and after
+    each step (``chosen``), the consumed tokens, the retrievals, and the
+    per-step decode ms and retrieval ms by CUDA events."""
+    B, S = tokens.shape
+    logits, caches = lm_model.prefill(model, params, {"tokens": tokens})
+    dec = lm_model.load_prefill_caches(
+        lm_model.init_decode_caches(model, B, S + steps, device=tokens.device), caches)
+    del caches
+    out = dict(prefill=logits, logits=[], chosen=[logits.argmax(dim=-1)], fed=[], retrieved=[],
+               decode_ms=[], retrieve_ms=[])
+    for i in range(steps):
+        tok = out["chosen"][i] if feed is None else feed[i].to(tokens.device)
+        (step_logits, dec), ms, _ = _event_call(
+            lambda: lm_model.decode_step(model, params, dec, tok, S + i))
+        out["fed"].append(tok)
+        out["logits"].append(step_logits)
+        out["chosen"].append(step_logits.argmax(dim=-1))
+        out["decode_ms"].append(ms)
+        if retrieve is not None:
+            got, ms, _ = _event_call(lambda: retrieve(tok))
+            out["retrieved"].append(got)
+            out["retrieve_ms"].append(ms)
+    return out
+
+
+def _reduced_card_vs_cpu(dev, dtype) -> dict:
+    """The reduced Yi-6B config, prefill plus 8 greedy decode steps, on the
+    card and by the port on the CPU, on the same weights; logits within
+    LM_TOL at every step.  fp32: the card decodes greedily on its own and
+    must choose the CPU's tokens.  bf16: the layers' outputs differ in the
+    last bf16 bit (matmuls sum in another order), which can flip a near
+    tie and send a free-running decode elsewhere, so the card consumes the
+    CPU's greedy tokens, and its argmax must be the CPU's at every step
+    whose top-2 gap on the CPU exceeds the bf16 bar (elsewhere it must be
+    within the bar of the CPU's best); the free-running card decode's
+    agreement is reported."""
+    cfg = dataclasses.replace(lm_configs.get("yi-6b", reduced=True), dtype=str(dtype)[6:])
+    model = lm_model.build(cfg)
+    params = lm_model.init_params(model, torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (LM_B, LM_REDUCED_PROMPT)))
+    tol = LM_TOL[dtype]
+    with torch.no_grad():
+        cpu = _greedy(model, params, tokens, LM_REDUCED_STEPS)
+        card_params = lm_model.tree_map(lambda t: t.to(dev), params)
+        n0 = fa_kernel.launches
+        free = _greedy(model, card_params, tokens.to(dev), LM_REDUCED_STEPS)
+        launched = fa_kernel.launches - n0
+        forced = free if dtype == torch.float32 else _greedy(
+            model, card_params, tokens.to(dev), LM_REDUCED_STEPS, feed=cpu["fed"])
+    want = [cpu["prefill"]] + cpu["logits"]
+    got = [x.cpu() for x in [forced["prefill"]] + forced["logits"]]
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    close = all(torch.allclose(a, b, **tol) for a, b in zip(got, want))
+    # per step: the CPU's top-2 gap, and whether the card chose the CPU's token
+    steps = []
+    for a, b, c in zip(got, want, forced["chosen"]):
+        top2 = b.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1])
+        bar = tol["atol"] + tol["rtol"] * top2[:, 0].abs()
+        chosen_cpu = b.argmax(dim=-1)
+        c = c.cpu()
+        near = gap <= 2 * bar
+        ok = (c == chosen_cpu) | (near & (b.gather(1, c[:, None])[:, 0] >= top2[:, 0] - 2 * bar))
+        steps.append(dict(equal=int((c == chosen_cpu).sum()), near_ties=int(near.sum()),
+                          ok=bool(ok.all()), min_gap=float(gap.min())))
+    free_equal = sum(int((a.cpu() == b).all()) for a, b in zip(free["chosen"], cpu["chosen"]))
+    r = dict(dtype=str(dtype)[6:], B=LM_B, prompt=LM_REDUCED_PROMPT, steps=LM_REDUCED_STEPS,
+             logits_max_abs_err=max(errs), logits_err_by_step=errs, logits_close=close,
+             choices=steps, free_running_steps_equal=free_equal,
+             free_running_tokens_equal=free_equal == LM_REDUCED_STEPS + 1,
+             flash_launches=launched)
+    print("lm serve: reduced:", json.dumps(r))
+    require(launched == cfg.n_layers, f"lm serve: the reduced prefill ({r['dtype']}) launched "
+            f"flash_attention {launched} times, not once per layer ({cfg.n_layers})")
+    require(close, f"lm serve: reduced Yi-6B ({r['dtype']}) on the card against the CPU: "
+            f"logits max error by step {errs} (bar {tol})")
+    require(all(st["ok"] for st in steps), f"lm serve: reduced Yi-6B ({r['dtype']}): the card's "
+            f"greedy choices differ from the CPU's: {steps}")
+    if dtype == torch.float32:
+        require(r["free_running_tokens_equal"], "lm serve: reduced Yi-6B (float32): the card's "
+                "greedy tokens differ from the CPU's")
+    return r
+
+
+def phase_lm_serve(dev, ds, graph, qb, card: str) -> dict:
+    """The port's LM serving path on the card: the reduced Yi-6B config
+    against the port on the CPU (fp32 and bf16), then Yi-6B at full width in
+    bf16 serving 4 requests of 2 048 prompt tokens (prefill, the caches
+    loaded into decode caches, 16 greedy decode steps, each retrieving top-5
+    from phase 5's 10 000 x 128 index through velo.batch_search with the
+    sampled token's embedding's first 128 dims as the query).  The full-width
+    run's launch counts are read around it: one flash_attention launch per
+    attention layer, each held against attention_ref on its own inputs."""
+    out = dict(card=card, reduced=[_reduced_card_vs_cpu(dev, dt)
+                                   for dt in (torch.float32, torch.bfloat16)])
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["allocated_before_gb"] = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    cfg = lm_configs.get("yi-6b")
+    model = lm_model.build(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = lm_model.init_params(model, gen)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    sizes: list[int] = []
+    lm_model.tree_map(lambda t: sizes.append(t.numel() * t.element_size()), params)
+    out["weights_gb"] = sum(sizes) / 1e9
+    tokens = torch.randint(0, cfg.vocab_size, (LM_B, LM_PROMPT), generator=gen, device=dev)
+    index = velo_index.from_host(qb, graph, device=dev)
+
+    def retrieve(tok):
+        q = lm_layers.embed(tok, params["embed"]).float()[:, :ds.dim]
+        return batch_search.batch_search(index, q, L=32, k=LM_TOPK)
+
+    # the main path, counted: prefill (each flash launch checked), decode, retrieval
+    reset_launches()
+    with torch.no_grad(), FlashRecorder() as rec:
+        run = _greedy(model, params, tokens, LM_STEPS, retrieve)
+    torch.cuda.synchronize()
+    out["launches"] = read_launches()
+    n_attn = sum(1 for i in range(cfg.n_layers) if cfg.layer_kind(i) == "attn")
+    require(out["launches"]["flash_attention"] == n_attn and len(rec.errors) == n_attn,
+            f"lm serve: a Yi-6B prefill must launch flash_attention once per attention layer "
+            f"({n_attn}): {out['launches']}, {len(rec.errors)} checked")
+    require(all(torch.isfinite(x).all() for x in [run["prefill"]] + run["logits"]),
+            "lm serve: logits must be finite")
+    toks = torch.stack(run["chosen"][1:], dim=1)
+    require(toks.shape == (LM_B, LM_STEPS) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"lm serve: {LM_B} x {LM_STEPS} tokens must be produced: {tuple(toks.shape)}")
+    for ids, d2, _ in run["retrieved"]:
+        require(ids.shape == (LM_B, LM_TOPK) and bool(((ids >= 0) & (ids < len(ds.base))).all())
+                and bool(torch.isfinite(d2).all()), "lm serve: retrieval output")
+    out["flash_checked"] = dict(calls=len(rec.errors), max_abs_err=max(rec.errors),
+                                shape=rec.shapes[0])
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["decode_ms"] = float(np.median(run["decode_ms"]))
+    out["retrieve_ms"] = float(np.median(run["retrieve_ms"]))
+    out["decode_tokens_per_s"] = LM_B / (out["decode_ms"] / 1e3)
+    out["tokens"] = toks.cpu().tolist()
+    out["retrieved_first_step"] = run["retrieved"][0][0].cpu().tolist()
+
+    with torch.no_grad():
+        # decode continues prefill: decode step 0 consumed the first greedy
+        # token at position S from the S-token caches; the prefill over the
+        # S + 1 tokens must predict the same next token
+        first = run["fed"][0]
+        full, _ = lm_model.prefill(model, params,
+                                   {"tokens": torch.cat([tokens, first[:, None]], dim=1)})
+        out["continue"] = dict(max_abs_dlogit=float((full - run["logits"][0]).abs().max()),
+                               argmax_equal_share=float(
+                                   (full.argmax(-1) == run["logits"][0].argmax(-1)).float().mean()),
+                               max_abs_logit=float(full.abs().max()))
+        del full
+        out["prefill_ms"] = time_ms(lambda: lm_model.prefill(model, params, {"tokens": tokens}),
+                                    reps=3, warmup=1)
+        _, kernels, _ = _profile(lambda: lm_model.prefill(model, params, {"tokens": tokens}))
+    total = sum(e.self_device_time_total for e in kernels)
+    flash = sum(e.self_device_time_total for e in kernels if "flash_attention" in e.key)
+    out["prefill_device_ms"] = total / 1e3
+    out["flash_share"] = flash / total if total else None
+    out["prefill_top"] = [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in kernels[:6]]
+    out["prefill_tokens_per_s"] = LM_B * LM_PROMPT / (out["prefill_ms"] / 1e3)
+    del params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("lm serve:", json.dumps(out, default=float))
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1391,6 +1632,8 @@ def main() -> int:
     phase_s["kv serve"] = time.perf_counter() - t0 - sum(phase_s.values())
     verify = phase_verify(ds, graph, qb, card)
     phase_s["verify"] = time.perf_counter() - t0 - sum(phase_s.values())
+    lm = phase_lm_serve(dev, ds, graph, qb, card)
+    phase_s["lm serve"] = time.perf_counter() - t0 - sum(phase_s.values())
     print(f"phase seconds on {card}:", json.dumps(phase_s))
 
     # each phase's launches by kernel, summed over that phase's main runs
@@ -1401,6 +1644,7 @@ def main() -> int:
         "kv serve": {n: sum(r["launches"][n] for r in kv) for n in KERNELS},
         "verify": verify["launches"],
         "attention kernels": attn_launches,
+        "lm serve": lm["launches"],
     }
     report = []
     for name, spec in KERNELS.items():
@@ -1411,7 +1655,9 @@ def main() -> int:
             launches=sum(path_launches[p][name] for p in spec["paths"]),
             max_abs_err=max([r["max_abs_err"] for r in mine]
                             + [c["max_abs_err"] for c in velo["chunk_check"]
-                               if name == "binary_ip"]),
+                               if name == "binary_ip"]
+                            + ([lm["flash_checked"]["max_abs_err"]]
+                               if name == "flash_attention" else [])),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
         ))
@@ -1420,7 +1666,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=card, kernels=report, launches_by_phase=path_launches, shapes=rows,
              attention=attn_rows, tables=tables, search=search, serving_plane=plane,
-             velo_device=velo, kv_serve=kv, verify=verify, phase_s=phase_s, sass=sass),
+             velo_device=velo, kv_serve=kv, verify=verify, lm_serve=lm, phase_s=phase_s,
+             sass=sass),
         indent=1, default=float))
     print(json.dumps({"kernels": report}))
     print(card)

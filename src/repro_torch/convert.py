@@ -200,3 +200,23 @@ def kv_pool_from_reference(
     for name in ("hits", "misses", "evictions", "swap_ins"):
         setattr(pool, name, int(fields[name]))
     return pool
+
+
+_LM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def lm_params_from_reference(tree, device: str | torch.device):
+    """The JAX package's ``models.model.init_params`` tree, its leaves as
+    NumPy arrays (stacked groups and tuples as they are), as the port's
+    tensors on ``device``, one to one.  bfloat16 leaves (ml_dtypes) go
+    through float32, which holds every bfloat16 value exactly."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_reference(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(lm_params_from_reference(v, device) for v in tree)
+    arr = np.asarray(tree)
+    dtype = _LM_DTYPES.get(arr.dtype.name)
+    if dtype is None:
+        raise ValueError(f"lm_params_from_reference: unexpected leaf dtype {arr.dtype}")
+    t = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+    return t.to(device=device, dtype=dtype)

@@ -5,6 +5,8 @@ import math
 
 import torch
 
+from repro_torch.kernels import pair_rows
+
 
 def unpack_signs(codes: torch.Tensor, d: int) -> torch.Tensor:
     """(N, d/8) uint8 (little-endian bits) -> (N, d) {-1,+1} float32."""
@@ -20,9 +22,18 @@ def binary_ip_ref(q: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     q:     (B, d) float
     codes: (N, d/8) uint8 (np.packbits bitorder='little')
     out:   (B, N) float32
-    """
-    signs = unpack_signs(codes, q.shape[1])
-    return q.to(torch.float32) @ signs.T
+
+    Each entry is its own reduction over d, so it is bit for bit the same
+    whatever other queries and rows share the call (a matmul would sum in an
+    order that depends on the call's (B, N))."""
+    B, d = q.shape
+    qf = q.to(torch.float32)[:, None, :]
+    out = torch.empty((B, codes.shape[0]), dtype=torch.float32, device=q.device)
+    step = pair_rows(B, d)
+    for s in range(0, codes.shape[0], step):
+        signs = unpack_signs(codes[s:s + step], d)
+        out[:, s:s + step] = (qf * signs[None]).sum(-1)
+    return out
 
 
 def estimate_from_ip(

@@ -232,6 +232,22 @@ def test_velo_hbm_scatter_invariant_across_50_interleavings(small):
         assert scatter_sizes(p1.trace) == scatter_sizes(p2.trace)
 
 
+def test_velo_fused_invariant_across_50_interleavings(small):
+    """Fused multi-query scoring on the CPU: a schedule changes which queries
+    share each (B, N) call, and the plain distance versions reduce each
+    (query, row) pair on its own, so ids, dists and hops stay bitwise
+    invariant across 50 interleavings (cbs off, as in the HBM replay)."""
+    def run_under(policy):
+        return run_system_under(policy, "velo", verify=False, fuse=True,
+                                params=SearchParams(cbs=False), fixture=small,
+                                device="cpu")
+
+    reports = explore(run_under, range(1, N_SCHEDULES + 1))
+    assert all(r.equal for r in reports), \
+        [r.first_diff for r in reports if not r.equal]
+    assert sum(r.ties["worker"] + r.ties["event"] for r in reports[1:]) > 0
+
+
 def test_sla_edf_schedule_invariant_with_slack_ties(small):
     def run_under(policy):
         return run_sla_under(policy, fixture=small, device="cpu")

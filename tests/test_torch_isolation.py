@@ -46,7 +46,14 @@ print(" ".join(names))
 NEW_MODULES = ("core.workload", "core.serving", "velo.index", "velo.batch_search",
                "velo.scan_search", "velo.dist_search", "analysis.registry",
                "analysis.spec", "analysis.lint", "analysis.protocol",
-               "analysis.explore", "analysis.__main__", "launch.serve")
+               "analysis.explore", "analysis.__main__", "launch.serve",
+               "configs.yi_6b", "configs.granite_20b",
+               "configs.tinyllama_1_1b", "configs.gemma3_1b", "configs.jamba_v0_1_52b",
+               "configs.kimi_k2_1t_a32b", "configs.dbrx_132b",
+               "configs.llava_next_mistral_7b", "configs.whisper_small",
+               "configs.rwkv6_7b", "configs.veloann",
+               "models.config", "models.layers", "models.moe", "models.mamba",
+               "models.rwkv", "models.blocks", "models.model", "convert")
 
 _IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|,|$)|from\s+repro(\.|\s))",
                      re.MULTILINE)

@@ -369,6 +369,43 @@ def test_fused_estimator_algebra_matches_plain_and_jax(B, N, d, jref):
     assert (np.abs(cos[[0, 2], :6]) > 1).sum() >= 10  # the clip acts
 
 
+# ------------------------------- plain versions: each entry its own reduction
+
+
+@pytest.mark.parametrize("d", [8, 64, 128, 960])
+def test_plain_distances_are_bitwise_whatever_shares_the_call(d):
+    """binary_ip_ref, estimate_dist2_ref and int4_dist2_ref give every
+    (query, row) entry bit for bit whatever subset of queries and rows shares
+    the call (the fused engine calls stack a schedule-dependent set of
+    queries), and under a row-chunk small enough to split the call."""
+    import repro_torch.kernels as kernels_pkg
+
+    B, N = 9, 300
+    rng = np.random.default_rng(d)
+    q, codes = _bip_inputs(B, N, d, seed=d)
+    _, ext, lo, step = _i4_inputs(B, N, d, seed=d + 1)
+    norms = rng.uniform(0.5, 2.0, N).astype(np.float32)
+    ip_bar = rng.uniform(0.6, 0.9, N).astype(np.float32)
+    q, codes, ext, lo, step, norms, ip_bar = _t(q, codes, ext, lo, step, norms, ip_bar)
+    full = (binary_ip_ref(q, codes), estimate_dist2_ref(q, codes, norms, ip_bar),
+            int4_dist2_ref(q, ext, lo, step))
+    old = kernels_pkg.PAIR_CHUNK_ELEMS
+    try:
+        for trial in range(24):
+            if trial == 12:
+                kernels_pkg.PAIR_CHUNK_ELEMS = 3 * d  # a few rows per chunk
+            qi = np.sort(rng.choice(B, int(rng.integers(1, B + 1)), replace=False))
+            ri = rng.choice(N, int(rng.integers(1, N + 1)), replace=False)
+            qi_t, ri_t = torch.from_numpy(qi), torch.from_numpy(ri)
+            sub = (binary_ip_ref(q[qi_t], codes[ri_t]),
+                   estimate_dist2_ref(q[qi_t], codes[ri_t], norms[ri_t], ip_bar[ri_t]),
+                   int4_dist2_ref(q[qi_t], ext[ri_t], lo[ri_t], step[ri_t]))
+            for got, want in zip(sub, full):
+                assert torch.equal(got, want[qi_t][:, ri_t]), (trial, qi, ri[:8])
+    finally:
+        kernels_pkg.PAIR_CHUNK_ELEMS = old
+
+
 # ------------------------------------------------- plain vs the host quantizer
 
 
