@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port of VeloANN and its KV serving plane.
+"""On-card smoke run of the PyTorch/CUDA port of VeloANN, its KV serving plane and its LM stack.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
@@ -13,8 +13,9 @@ Phases (each one that fails ends the run with a non-zero exit):
               SIFT1M scale, sweeps of a 1M table on the tensor-core path
               (which must show HMMA in cuobjdump -sass); paged_attention at
               Yi-6B widths (B x context sweep, bf16 and fp32 pages);
-              flash_attention at Yi-6B prefill, a gemma3-1b
-              local layer and whisper-small's encoder, bf16 and fp32 inputs;
+              flash_attention at Yi-6B prefill, TinyLlama-1.1B's training
+              call, a gemma3-1b local layer and whisper-small's encoder,
+              bf16 and fp32 inputs;
               both at the reduced Yi-6B config's Dh 16, and paged decode at
               granite-20b's group of 48 heads over Dh 128; binary_ip's bf16
               sweeps at scan_search's chunk and tail (B 8 and 64)
@@ -75,7 +76,20 @@ Phases (each one that fails ends the run with a non-zero exit):
               from phase 5's index through velo.batch_search; reports
               decode-continues-prefill, prefill / decode / retrieval times,
               flash's share of the prefill's device time, peak memory
- 11. report   one JSON line of per-kernel numbers, then the card line and the
+ 11. lm train the port's training path (train/*, launch/train): the reduced
+              TinyLlama, 5 AdamW steps on the card against the port on the
+              CPU on the same weights and batches (fp32 and bf16: losses
+              within TRAIN_LOSS_TOL, parameters within Adam's worst case and
+              the bulk within the stated bars), then TinyLlama-1.1B at full
+              width in bf16, 10 AdamW steps of 4 x 2 048 tokens: 44
+              flash_attention launches a step (forward and remat recompute
+              of 22 layers; the first step's each held against
+              attention_ref), a falling finite loss, step ms and tokens/s,
+              peak memory, a profiled step's device split (GEMMs, flash, the
+              plain attention backward, the optimizer); then the training
+              CLI resumed after an injected failure (exit 42) against an
+              uninterrupted run
+ 12. report   one JSON line of per-kernel numbers, then the card line and the
               final {"ok": true, ...} line
 
 Imports torch, numpy and the port (src/repro_torch) only.
@@ -86,6 +100,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -94,6 +109,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -121,9 +137,13 @@ from repro_torch.kernels.paged_attention import kernel as pa_kernel  # noqa: E40
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.serving.kv_pool import PagedKVPool  # noqa: E402
+from repro_torch.train import data as train_data  # noqa: E402
+from repro_torch.train import optimizer as train_opt  # noqa: E402
+from repro_torch.train import train_step  # noqa: E402
 from repro_torch.serving.scheduler import CacheAwareScheduler, ServeRequest  # noqa: E402
 from repro_torch.velo import batch_search, scan_search  # noqa: E402
 from repro_torch.velo import index as velo_index  # noqa: E402
@@ -186,6 +206,9 @@ HOST_TOL = dict(rtol=2e-3, atol=2e-3)
 # estimate, which is what the search path launches)
 SIFT1M_FLUSH = dict(shape="B=8 N=256 d=128 table=1000000 gathered", dtype="float32")
 LM_FLASH_SHAPE = "yi-6b lm serve prefill B=4 S=2048"
+TRAIN_FLASH_SHAPE = "tinyllama-1.1b lm train B=4 S=2048"
+TINYLLAMA = dict(H=32, KVH=4, Dh=64)  # src/repro/configs/tinyllama_1_1b.py
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 10
 KERNELS = {
     "binary_ip": dict(source="src/repro_torch/csrc/binary_ip.cu",
                       replaces="src/repro/kernels/binary_ip/kernel.py:28",
@@ -202,10 +225,13 @@ KERNELS = {
                             counter=pa_kernel, paths=("kv serve",),
                             main=dict(shape="B=8 ctx=2048", dtype="bfloat16")),
     # the LM serving path's prefill attention: Yi-6B, 4 requests x 2 048
-    # tokens, bf16 (its launches: phase 3's and the lm serve phase's)
+    # tokens, bf16 (its launches: phase 3's, the lm serve phase's and the lm
+    # train phase's, whose steps launch it in every attention layer's
+    # forward and again in its remat recompute)
     "flash_attention": dict(source="src/repro_torch/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention/kernel.py:33",
-                            counter=fa_kernel, paths=("attention kernels", "lm serve"),
+                            counter=fa_kernel,
+                            paths=("attention kernels", "lm serve", "lm train"),
                             main=dict(shape=LM_FLASH_SHAPE, dtype="bfloat16")),
 }
 # kv serve: the pool cut so that 16 live requests of ~1 280 tokens (~1 300
@@ -668,6 +694,10 @@ def phase_attention(dev, card: str) -> tuple[list[dict], dict[str, int]]:
     # the lm serve phase's call: 4 requests of 2 048 tokens
     rows.append(check_flash(dev, gen, LM_FLASH_SHAPE, **dict(yi, B=4), S=2048,
                             dtype=torch.bfloat16))
+    # the lm train phase's call: TinyLlama-1.1B, 4 sequences of 2 048 tokens
+    rows.append(check_flash(dev, gen, TRAIN_FLASH_SHAPE, TRAIN_B, TINYLLAMA["H"],
+                            TINYLLAMA["KVH"], TRAIN_S, TINYLLAMA["Dh"], True, None,
+                            torch.bfloat16))
     rows.append(check_flash(dev, gen, "gemma3-1b local S=2048 w=512", 1, 4, 1, 2048, 256,
                             True, 512, torch.bfloat16))
     rows.append(check_flash(dev, gen, "whisper-small encoder S=1500", 1, 12, 12, 1500, 64,
@@ -1379,7 +1409,8 @@ class FlashRecorder:
     against ``attention_ref`` on its own q, k, v at phase 3's bar; the
     errors are kept in call order."""
 
-    def __init__(self):
+    def __init__(self, phase: str = "lm serve"):
+        self.phase = phase
         self.errors: list[float] = []
         self.shapes: list[tuple] = []
         self._real = fa_ops.flash_attention
@@ -1388,7 +1419,8 @@ class FlashRecorder:
         out = self._real(q, k, v, causal=causal, window=window, scale=scale)
         want = fa_ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale)
         require(torch.allclose(out.float(), want.float(), **ATTN_TOL[q.dtype]),
-                f"lm serve: flash_attention call {len(self.errors)} disagrees with attention_ref")
+                f"{self.phase}: flash_attention call {len(self.errors)} disagrees with "
+                f"attention_ref")
         self.errors.append(float((out.float() - want.float()).abs().max()))
         self.shapes.append((tuple(q.shape), tuple(k.shape), causal, window, str(q.dtype)[6:]))
         return out
@@ -1579,6 +1611,287 @@ def phase_lm_serve(dev, ds, graph, qb, card: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 11
+
+
+# the reduced TinyLlama trained on the card and by the port on the CPU from
+# the same weights: 5 AdamW steps of 4 x 64 tokens; losses by dtype (fp32:
+# the sums' order; bf16: phase 10's bar)
+TRAIN_REDUCED = dict(B=4, S=64, steps=5, lr=1e-3)
+TRAIN_LOSS_TOL = {torch.float32: dict(rtol=1e-4, atol=0.0),
+                  torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+BF16_ULP = 2.0 ** -7  # the spacing of bf16 values relative to their magnitude
+GEMM_KEYS = ("gemm", "xmma", "nvjet", "cutlass")  # cuBLAS kernels by name
+
+
+def adam_ratio_bound(b1: float, b2: float, t: int) -> float:
+    """The largest |m_hat / sqrt(v_hat)| Adam can reach at step t over any
+    gradients: with m_hat = sum w_i g_i and v_hat = sum u_i g_i^2,
+    Cauchy-Schwarz gives sqrt(sum w_i^2 / u_i)."""
+    w = [(1 - b1) * b1 ** (t - i) / (1 - b1 ** t) for i in range(1, t + 1)]
+    u = [(1 - b2) * b2 ** (t - i) / (1 - b2 ** t) for i in range(1, t + 1)]
+    return float(np.sqrt(sum(a * a / c for a, c in zip(w, u))))
+
+
+def _train_batches(cfg, B: int, S: int, steps: int) -> list[dict]:
+    dcfg = train_data.DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=0)
+    return [{k: torch.from_numpy(v) for k, v in train_data.batch_for_step(dcfg, s).items()}
+            for s in range(steps)]
+
+
+def _flash_per_step(cfg) -> int:
+    """flash_attention launches in one train step: each attention layer's
+    forward, and again when the backward recomputes its remat group."""
+    return 2 * sum(1 for i in range(cfg.n_layers) if cfg.layer_kind(i) == "attn")
+
+
+def _reduced_train_card_vs_cpu(dev, dtype) -> dict:
+    """The reduced TinyLlama, 5 AdamW steps on the card and by the port on
+    the CPU from the same seeded weights and ``batch_for_step`` batches.
+    Losses within TRAIN_LOSS_TOL.  Parameters: Adam moves an entry by about
+    lr a step whatever |g|, so a gradient that nearly cancels can step the
+    other way on one device, and no bar tighter than Adam's own worst case
+    holds for every entry.  So every entry must lie within that worst case,
+    2 sum_t lr_t R_t (R_t = adam_ratio_bound; plus, in bf16, one ulp of the
+    entry a step for the parameters' rounding), and the bulk's summed
+    updates must agree: fp32, all but 0.1 % of the entries within 1e-3 of
+    sum_t lr_t (the total step); bf16, all but 1 % within 0.1 of it plus
+    two ulps of the entry (an update of ~lr is one to ten ulps of these
+    weights, so a last-bit difference in it can round the other way)."""
+    R = TRAIN_REDUCED
+    cfg = dataclasses.replace(lm_configs.get("tinyllama-1.1b", reduced=True),
+                              dtype=str(dtype)[6:])
+    model = lm_model.build(cfg)
+    opt_cfg = train_opt.OptConfig(lr=R["lr"], total_steps=R["steps"], warmup_steps=1)
+    step_fn = train_step.make_train_step(model, "adamw", opt_cfg, ce_chunk=32)
+    cpu_p, cpu_o = train_step.make_init(model, "adamw")(torch.Generator().manual_seed(0))
+    card_p, card_o = lm_model.tree_map(lambda t: t.to(dev), (cpu_p, cpu_o))
+    tol = TRAIN_LOSS_TOL[dtype]
+    cpu_l, card_l = [], []
+    n0 = fa_kernel.launches
+    for batch in _train_batches(cfg, R["B"], R["S"], R["steps"]):
+        cpu_p, cpu_o, m = step_fn(cpu_p, cpu_o, batch)
+        card_p, card_o, mc = step_fn(card_p, card_o, {k: v.to(dev) for k, v in batch.items()})
+        cpu_l.append(float(m["loss"]))
+        card_l.append(float(mc["loss"]))
+    launched = fa_kernel.launches - n0
+    lrs = [float(train_opt.schedule(opt_cfg, torch.tensor(t, dtype=torch.int32)))
+           for t in range(1, R["steps"] + 1)]
+    b1, b2 = opt_cfg.betas
+    worst = 2 * sum(lr * adam_ratio_bound(b1, b2, t) for t, lr in enumerate(lrs, 1))
+    over, n_all, off, max_err = 0, 0, 0, 0.0
+    for a, b in zip(train_opt.tree_leaves(card_p), train_opt.tree_leaves(cpu_p)):
+        a, b = a.float().cpu(), b.float()
+        d = (a - b).abs()
+        max_err = max(max_err, float(d.max()))
+        if dtype == torch.float32:
+            bound = worst + 1e-6 * b.abs().max()
+            off += int((d > 1e-3 * sum(lrs) + 1e-6 * b.abs()).sum())
+        else:
+            bound = worst + R["steps"] * BF16_ULP * torch.maximum(a.abs(), b.abs())
+            off += int((d > 0.1 * sum(lrs) + 2 * BF16_ULP * b.abs()).sum())
+        over += int((d > bound).sum())
+        n_all += d.numel()
+    loss_close = all(np.isclose(c, g, **tol) for c, g in zip(card_l, cpu_l))
+    r = dict(dtype=str(dtype)[6:], steps=R["steps"], cpu_losses=cpu_l, card_losses=card_l,
+             loss_max_rel_err=max(abs(c - g) / abs(g) for c, g in zip(card_l, cpu_l)),
+             params_max_abs_err=max_err, adam_worst_case=worst, entries_over_worst_case=over,
+             entries_off_bulk=off, entries=n_all, off_share=off / n_all, flash_launches=launched)
+    print("lm train: reduced:", json.dumps(r))
+    per_step = _flash_per_step(cfg)
+    require(launched == per_step * R["steps"], f"lm train: reduced ({r['dtype']}) launched "
+            f"flash_attention {launched} times, not {per_step} a step")
+    require(loss_close, f"lm train: reduced ({r['dtype']}) card losses {card_l} against the "
+            f"CPU's {cpu_l} (bar {tol})")
+    require(over == 0, f"lm train: reduced ({r['dtype']}): {over} parameters beyond Adam's "
+            f"worst case {worst:.3e}")
+    require(r["off_share"] <= (1e-3 if dtype == torch.float32 else 1e-2),
+            f"lm train: reduced ({r['dtype']}): {off} of {n_all} parameters off the CPU's")
+    return r
+
+
+def _range_kernels(ev) -> list:
+    """The kernels launched under a profiled CPU event and its children."""
+    out = list(ev.kernels)
+    for ch in ev.cpu_children:
+        out += _range_kernels(ch)
+    return out
+
+
+def _train_split(prof) -> dict:
+    """A profiled train step's device time (ms): the cuBLAS GEMMs (outside
+    the attention backward), flash_attention, the plain attention backward
+    (everything under ``chunked_attention.backward``), the optimizer
+    (everything under ``train_step.optimizer``) and the rest."""
+    ranges = {"chunked_attention.backward": [0.0, 0.0, 0], "train_step.optimizer": [0.0, 0.0, 0]}
+    # the ranges also show as device-side annotations: kernels are the rest
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0 and e.key not in ranges
+               and not e.key.startswith(("Memcpy", "Memset"))]
+
+    def is_gemm(name):
+        return any(k in name.lower() for k in GEMM_KEYS)
+
+    def us(pred):
+        return sum(e.self_device_time_total for e in kernels if pred(e.key))
+
+    total, flash, gemm = us(lambda k: True), us(lambda k: "flash_attention" in k), us(is_gemm)
+    for ev in prof.events():
+        if ev.name in ranges and ev.device_type == DeviceType.CPU:
+            ks = _range_kernels(ev)
+            ranges[ev.name][0] += sum(k.duration for k in ks)
+            ranges[ev.name][1] += sum(k.duration for k in ks if is_gemm(k.name))
+            ranges[ev.name][2] += 1
+    bwd, bwd_gemm, n_bwd = ranges["chunked_attention.backward"]
+    opt, _, _ = ranges["train_step.optimizer"]
+    split = dict(total_ms=total / 1e3, gemm_ms=(gemm - bwd_gemm) / 1e3, flash_ms=flash / 1e3,
+                 attention_backward_ms=bwd / 1e3, attention_backward_gemm_ms=bwd_gemm / 1e3,
+                 attention_backward_ranges=n_bwd, optimizer_ms=opt / 1e3)
+    split["other_ms"] = (total - (gemm - bwd_gemm) - flash - bwd - opt) / 1e3
+    split["launches"] = sum(e.count for e in kernels)
+    split["top"] = [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in
+                    sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]]
+    return split
+
+
+def _plain_backward_ms(dev) -> float:
+    """The attention backward's time for one layer at the training call:
+    the streaming recurrence recomputed under autograd and differentiated,
+    as ``FlashAttention.backward`` does (CUDA events, median of 5)."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    H, KVH, Dh = TINYLLAMA["H"], TINYLLAMA["KVH"], TINYLLAMA["Dh"]
+    q, grad = (torch.randn(TRAIN_B, H, TRAIN_S, Dh, generator=gen, device=dev).bfloat16()
+               for _ in range(2))
+    k, v = (torch.randn(TRAIN_B, KVH, TRAIN_S, Dh, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+
+    def backward():
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            out = lm_layers._streaming_attention(*ins, True, 0, 512, None)
+            return torch.autograd.grad(out, ins, grad)
+
+    return time_ms(backward, reps=5, warmup=1)
+
+
+def _cli_resume(card: str) -> dict:
+    """``launch.train`` on the card (its defaults: the reduced TinyLlama, 8 x
+    128 tokens): 12 steps uninterrupted; then with a failure injected at
+    step 6 (exit 42) after the step-4 checkpoint, and ``--resume`` to the
+    end.  The resumed losses must equal the uninterrupted run's within
+    1e-6 relative; whether they and the final checkpoints are bitwise equal
+    is reported."""
+    root = ROOT / "build" / "lm_train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", "tinyllama-1.1b", "--steps", "12", "--ckpt-every", "4",
+            "--log-every", "4", "--device", "cuda"]
+    reset_launches()
+    t0 = time.perf_counter()
+    full = train_cli.main(argv + ["--ckpt-dir", str(root / "full")])
+    code = 0
+    try:
+        train_cli.main(argv + ["--ckpt-dir", str(root / "cut"), "--fail-at-step", "6"])
+    except SystemExit as exc:
+        code = exc.code
+    resumed = train_cli.main(argv + ["--ckpt-dir", str(root / "cut"), "--resume"])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    with np.load(root / "full" / "step_00000012" / "arrays.npz") as a, \
+            np.load(root / "cut" / "step_00000012" / "arrays.npz") as b:
+        same_files = a.files == b.files
+        ckpt_bitwise = same_files and all(np.array_equal(a[k], b[k]) for k in a.files)
+    shutil.rmtree(root)
+    r = dict(exit_code=code, full_losses=full, resumed_losses=resumed,
+             max_rel_err=max(abs(x - y) / abs(y) for x, y in zip(resumed, full[4:])),
+             losses_bitwise=resumed == full[4:], checkpoint_bitwise=ckpt_bitwise,
+             wall_s=wall, launches=launches)
+    print(f"lm train: CLI on {card}:", json.dumps(r))
+    require(code == 42, f"lm train: the CLI's injected failure exited {code}, not 42")
+    require(len(resumed) == 8 and same_files and r["max_rel_err"] <= 1e-6,
+            f"lm train: the resumed CLI run differs from the uninterrupted one: {r}")
+    return r
+
+
+def phase_lm_train(dev, card: str) -> dict:
+    """The port's training path on the card: the reduced TinyLlama against
+    the port on the CPU (fp32 and bf16), then TinyLlama-1.1B at its
+    published widths in bf16, AdamW, 10 steps of 4 x 2 048 tokens
+    (``batch_for_step``, seed 0), each attention layer's forward on the
+    flash_attention kernel and its backward the streaming recurrence's.
+    Every step launches the kernel twice per attention layer: in the
+    forward and again in the remat recompute of its group during the
+    backward.  The first step's launches are each held against
+    attention_ref; step ms by CUDA events (median after the first step),
+    peak memory, a profiled 11th step's device split; then the training
+    CLI resumed after an injected failure."""
+    out = dict(card=card, reduced=[_reduced_train_card_vs_cpu(dev, dt)
+                                   for dt in (torch.float32, torch.bfloat16)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = lm_configs.get("tinyllama-1.1b")
+    model = lm_model.build(cfg)
+    per_step = _flash_per_step(cfg)
+    opt_cfg = train_opt.OptConfig(lr=3e-4, total_steps=TRAIN_STEPS, warmup_steps=1)
+    step_fn = train_step.make_train_step(model, "adamw", opt_cfg)
+    t0 = time.perf_counter()
+    params, opt = train_step.make_init(model, "adamw")(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+
+    def gb(tree):
+        return sum(t.numel() * t.element_size() for t in train_opt.tree_leaves(tree)) / 1e9
+
+    out["params_gb"], out["opt_gb"] = gb(params), gb(opt)
+    batches = _train_batches(cfg, TRAIN_B, TRAIN_S, TRAIN_STEPS + 1)
+    losses, ms, launched = [], [], []
+    reset_launches()  # the main path, counted
+    for step, batch in enumerate(batches[:TRAIN_STEPS]):
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        n0 = fa_kernel.launches
+        if step == 0:
+            with FlashRecorder("lm train") as rec:
+                (params, opt, m), t, _ = _event_call(lambda: step_fn(params, opt, batch))
+        else:
+            (params, opt, m), t, _ = _event_call(lambda: step_fn(params, opt, batch))
+        launched.append(fa_kernel.launches - n0)
+        losses.append(float(m["loss"]))
+        ms.append(t)
+    out["launches"] = read_launches()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out.update(losses=losses, step_ms_each=ms, flash_launches_per_step=launched,
+               flash_checked=dict(calls=len(rec.errors), max_abs_err=max(rec.errors),
+                                  shape=rec.shapes[0]))
+    out["step_ms"] = float(np.median(ms[1:]))
+    out["tokens_per_s"] = TRAIN_B * TRAIN_S / (out["step_ms"] / 1e3)
+    print("lm train: TinyLlama-1.1B losses", losses, "step ms", ms, flush=True)
+    require(all(np.isfinite(losses)), f"lm train: losses must be finite: {losses}")
+    require(np.mean(losses[-3:]) < losses[0],
+            f"lm train: the mean of the last 3 losses must be below the first: {losses}")
+    require(all(n == per_step for n in launched) and len(rec.errors) == per_step,
+            f"lm train: each step must launch flash_attention {per_step} times (forward and "
+            f"remat recompute of {per_step // 2} attention layers): {launched}, "
+            f"{len(rec.errors)} checked")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {k: v.to(dev) for k, v in batches[TRAIN_STEPS].items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, opt, _ = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+    out["split"] = _train_split(prof)
+    del prof, params, opt, batch, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["plain_backward_ms_a_layer"] = _plain_backward_ms(dev)
+    out["cli"] = _cli_resume(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("lm train:", json.dumps({k: v for k, v in out.items() if k != "reduced"}, default=float))
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1634,6 +1947,8 @@ def main() -> int:
     phase_s["verify"] = time.perf_counter() - t0 - sum(phase_s.values())
     lm = phase_lm_serve(dev, ds, graph, qb, card)
     phase_s["lm serve"] = time.perf_counter() - t0 - sum(phase_s.values())
+    train = phase_lm_train(dev, card)
+    phase_s["lm train"] = time.perf_counter() - t0 - sum(phase_s.values())
     print(f"phase seconds on {card}:", json.dumps(phase_s))
 
     # each phase's launches by kernel, summed over that phase's main runs
@@ -1645,6 +1960,7 @@ def main() -> int:
         "verify": verify["launches"],
         "attention kernels": attn_launches,
         "lm serve": lm["launches"],
+        "lm train": {n: train["launches"][n] + train["cli"]["launches"][n] for n in KERNELS},
     }
     report = []
     for name, spec in KERNELS.items():
@@ -1656,7 +1972,8 @@ def main() -> int:
             max_abs_err=max([r["max_abs_err"] for r in mine]
                             + [c["max_abs_err"] for c in velo["chunk_check"]
                                if name == "binary_ip"]
-                            + ([lm["flash_checked"]["max_abs_err"]]
+                            + ([lm["flash_checked"]["max_abs_err"],
+                                train["flash_checked"]["max_abs_err"]]
                                if name == "flash_attention" else [])),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
@@ -1666,7 +1983,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=card, kernels=report, launches_by_phase=path_launches, shapes=rows,
              attention=attn_rows, tables=tables, search=search, serving_plane=plane,
-             velo_device=velo, kv_serve=kv, verify=verify, lm_serve=lm, phase_s=phase_s,
+             velo_device=velo, kv_serve=kv, verify=verify, lm_serve=lm, lm_train=train,
+             phase_s=phase_s,
              sass=sass),
         indent=1, default=float))
     print(json.dumps({"kernels": report}))

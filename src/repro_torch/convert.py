@@ -15,6 +15,11 @@ ids and the sentinel row, and builds the port's on a device (ids become
 int64), so both packages run ``batch_search`` and ``scan_search`` over one
 index image.
 
+An optimizer state travels the same way: ``opt_state_from_reference``
+takes the reference's AdamW or AdamW8 state (``m``, ``v`` and ``step``, the
+moments as float32 trees or as int8 codes with their scales) and builds the
+port's, so a train step can start from one state in both packages.
+
 A paged KV pool mid-run travels the same way: ``kv_pool_from_reference``
 takes its pages, page states, owners, clock hand, block tables, swap store
 and counters as plain values and builds a ``PagedKVPool`` that continues
@@ -220,3 +225,33 @@ def lm_params_from_reference(tree, device: str | torch.device):
         raise ValueError(f"lm_params_from_reference: unexpected leaf dtype {arr.dtype}")
     t = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
     return t.to(device=device, dtype=dtype)
+
+
+_OPT_DTYPES = {"float32": torch.float32, "int8": torch.int8, "int32": torch.int32}
+
+
+def opt_state_from_reference(tree, device: str | torch.device):
+    """The JAX package's ``train.optimizer`` state as the port's on
+    ``device``: a dict with ``m``, ``v`` (trees shaped like the parameters;
+    AdamW: float32 leaves, AdamW8: ``{"q": int8, "s": float32}`` and
+    ``{"q", "s", "mn"}`` at each parameter's place) and ``step``, a 0-d
+    int32; leaves as NumPy arrays, dtypes kept."""
+    if not isinstance(tree, dict) or set(tree) != {"m", "v", "step"}:
+        raise ValueError("opt_state_from_reference: expected a dict with m, v and step")
+    step = np.asarray(tree["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"opt_state_from_reference: step must be a 0-d int32, got "
+                         f"{step.dtype} {step.shape}")
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return type(t)(conv(v) for v in t)
+        arr = np.asarray(t)
+        dtype = _OPT_DTYPES.get(arr.dtype.name)
+        if dtype is None:
+            raise ValueError(f"opt_state_from_reference: unexpected leaf dtype {arr.dtype}")
+        return torch.from_numpy(np.array(arr, order="C")).to(device)
+
+    return {"m": conv(tree["m"]), "v": conv(tree["v"]), "step": conv(step)}

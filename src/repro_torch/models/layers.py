@@ -7,8 +7,13 @@ JAX package's own documents name the Pallas flash kernel as the model's
 prefill path, and both compute one function (queries right-aligned to keys,
 the causal and window masks, GQA by ``h // group``, an fp32 online softmax).
 On CPU tensors it runs the reference's streaming recurrence over KV blocks
-with its finite ``NEG_INF``.  Decode attention is plain tensor ops over the
-dense (B, KVH, S, Dh) cache on both devices, as in the reference.
+with its finite ``NEG_INF``.  In training (grad mode on, an input that
+requires a gradient) the card's call goes through ``FlashAttention``: the
+kernel's forward, and a backward that is autograd of the streaming
+recurrence, recomputed from the saved q, k, v; the reference's training
+backward is XLA's autodiff of that same recurrence.  Decode attention is
+plain tensor ops over the dense (B, KVH, S, Dh) cache on both devices, as
+in the reference.
 
 The reference's conventions are kept: matmuls return their inputs' dtype,
 silu / rmsnorm / softmax run in fp32 and cast back, q is scaled in its own
@@ -52,39 +57,13 @@ def swiglu(x, w_gate, w_up, w_down):
 # --------------------------------------------------------------- attention
 
 
-def chunked_attention(
-    q: torch.Tensor,        # (B, H, Sq, Dh)
-    k: torch.Tensor,        # (B, KVH, Skv, Dh)
-    v: torch.Tensor,        # (B, KVH, Skv, Dh)
-    causal: bool = True,
-    window: int = 0,        # 0 = full
-    block: int = 512,
-    q_offset: int | None = None,  # key position of query row 0
-) -> torch.Tensor:
-    """Prefill attention (B, H, Sq, Dh) in q's dtype.
-
-    CUDA tensors launch the flash_attention kernel, which aligns queries to
-    the right of the keys (``q_offset = Skv - Sq``, the default and the only
-    offset the model passes; another raises).  The kernel has no backward,
-    so with grad mode on, an input that requires a gradient raises rather
-    than return a result cut from the graph.  CPU tensors take the streaming recurrence of the
-    reference over KV blocks of ``block`` keys."""
+def _streaming_attention(q, k, v, causal: bool, window: int, block: int,
+                         q_offset: int | None) -> torch.Tensor:
+    """The reference's streaming recurrence over KV blocks of ``block`` keys
+    (fp32 online softmax, finite ``NEG_INF``), on q's device."""
     B, H, Sq, Dh = q.shape
     KVH, Skv = k.shape[1], k.shape[2]
     scale = Dh**-0.5
-    if q.is_cuda or k.is_cuda or v.is_cuda:
-        if q_offset is not None and q_offset != Skv - Sq:
-            raise ValueError(f"chunked_attention: the flash kernel aligns queries to the "
-                             f"right of the keys (q_offset {Skv - Sq}), got {q_offset}")
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-            raise RuntimeError("chunked_attention: the flash_attention kernel has no backward; "
-                               "an input requires a gradient")
-        # the reference scales q in its own dtype before the product
-        qs = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        torch.mul(q, scale, out=qs)
-        return flash_ops.flash_attention(qs, k.contiguous(), v.contiguous(), causal=causal,
-                                         window=window if window > 0 else None, scale=1.0)
-
     group = H // KVH
     q_offset = q_offset if q_offset is not None else Skv - Sq
     block = min(block, Skv)
@@ -116,6 +95,71 @@ def chunked_attention(
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vv)
         m = m_new
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
+
+def _flash(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """The flash_attention kernel on q * scale (scaled in q's dtype, the
+    reference's order), ``scale=1``.  ``flash_ops.flash_attention`` is
+    looked up at each call, so a wrapper installed on the module sees it."""
+    # the reference scales q in its own dtype before the product
+    qs = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    torch.mul(q, q.shape[-1]**-0.5, out=qs)
+    return flash_ops.flash_attention(qs, k.contiguous(), v.contiguous(), causal=causal,
+                                     window=window if window > 0 else None, scale=1.0)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Prefill attention with a gradient: forward by the flash_attention
+    kernel (its plain version for CPU tensors), backward by autograd of the
+    streaming recurrence recomputed from the saved (unscaled) q, k, v under
+    ``torch.enable_grad()``.  The JAX package has no backward kernel: its
+    training backward is XLA's autodiff of the same recurrence, so this is
+    the reference's arithmetic.  Queries are right-aligned to the keys."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, block: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window, ctx.block = causal, window, block
+        return _flash(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.profiler.record_function("chunked_attention.backward"), torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+            out = _streaming_attention(*inputs, ctx.causal, ctx.window, ctx.block, None)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,) * 3
+
+
+def chunked_attention(
+    q: torch.Tensor,        # (B, H, Sq, Dh)
+    k: torch.Tensor,        # (B, KVH, Skv, Dh)
+    v: torch.Tensor,        # (B, KVH, Skv, Dh)
+    causal: bool = True,
+    window: int = 0,        # 0 = full
+    block: int = 512,
+    q_offset: int | None = None,  # key position of query row 0
+) -> torch.Tensor:
+    """Prefill attention (B, H, Sq, Dh) in q's dtype.
+
+    CUDA tensors launch the flash_attention kernel, which aligns queries to
+    the right of the keys (``q_offset = Skv - Sq``, the default and the only
+    offset the model passes; another raises).  With grad mode on and an
+    input that requires a gradient, the call goes through ``FlashAttention``
+    (the kernel forward, the streaming recurrence's backward).  CPU tensors
+    take the streaming recurrence of the reference over KV blocks of
+    ``block`` keys, under autograd as it is."""
+    if q.is_cuda or k.is_cuda or v.is_cuda:
+        Sq, Skv = q.shape[2], k.shape[2]
+        if q_offset is not None and q_offset != Skv - Sq:
+            raise ValueError(f"chunked_attention: the flash kernel aligns queries to the "
+                             f"right of the keys (q_offset {Skv - Sq}), got {q_offset}")
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return FlashAttention.apply(q, k, v, causal, window, block)
+        return _flash(q, k, v, causal, window)
+    return _streaming_attention(q, k, v, causal, window, block, q_offset)
 
 
 def decode_attention(

@@ -10,8 +10,11 @@ and caches are nested dicts and tuples of tensors with the reference's
 structure, keys and shapes, so ``convert.lm_params_from_reference`` maps a
 reference tree one to one.
 
-``forward_train`` gives the loss value only: prefill attention on the card
-is the flash kernel, which has no backward (the training slice adds one).
+``forward_train`` is differentiable on both devices: each group body runs
+under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` remat
+around its scanned group body), so a backward recomputes one group at a
+time, and the card's prefill attention is the flash kernel with the
+streaming recurrence's backward (``layers.FlashAttention``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import math
 from functools import reduce
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
@@ -89,6 +93,19 @@ def group_slice(stacked, g: int):
     return tree_map(lambda t: t[g], stacked)
 
 
+def _unstack(stacked, n: int) -> list:
+    """The ``n`` groups of stacked leaves, as views: one ``unbind`` a leaf,
+    whose backward stacks the groups' gradients once (a ``t[g]`` per group
+    would add a full-size gradient per group)."""
+    parts = []
+    tree_map(lambda t: parts.append(t.unbind(0)), stacked)
+    groups = []
+    for g in range(n):
+        it = iter([p[g] for p in parts])
+        groups.append(tree_map(lambda _: next(it), stacked))
+    return groups
+
+
 # ----------------------------------------------------------------------- init
 
 
@@ -133,19 +150,32 @@ def _unembed(params, cfg):
     return params["unembed"]
 
 
-def _run_groups_seq(model, gparams, specs, n_groups, x, positions, enc_states, want_cache):
+def _run_groups_seq(model, gparams, specs, n_groups, x, positions, enc_states, want_cache,
+                    remat=False):
+    """The stacked groups in order.  ``remat`` (with grad mode on): each
+    group body runs under ``torch.utils.checkpoint``, which keeps only its
+    inputs and recomputes the body in the backward."""
     cfg = model.cfg
-    aux = 0.0
-    caches = None
-    for g in range(n_groups):
-        gp = group_slice(gparams, g)
+
+    def body(gp, x):
+        aux = 0.0
         group_caches = []
         for s, spec in enumerate(specs):
             x, cache, a = B.layer_seq(gp[s], x, cfg, spec, positions, enc_states, want_cache)
             aux = aux + a
             group_caches.append(cache)
+        return x, aux, tuple(group_caches)
+
+    aux = 0.0
+    caches = None
+    for g, gp in enumerate(_unstack(gparams, n_groups)):
+        if remat and torch.is_grad_enabled():
+            x, a, group_caches = checkpoint(body, gp, x, use_reentrant=False)
+        else:
+            x, a, group_caches = body(gp, x)
+        aux = aux + a
         if want_cache:
-            caches = _stack_into(caches, g, n_groups, tuple(group_caches))
+            caches = _stack_into(caches, g, n_groups, group_caches)
     return x, aux, caches if want_cache else 0
 
 
@@ -165,7 +195,8 @@ def _embed_inputs(model: Model, params, batch):
         frames = batch["frames"].to(x.dtype)             # (B, T_enc, d) stub
         positions_enc = torch.arange(frames.shape[1], device=x.device).expand(frames.shape[:2])
         h, _, _ = _run_groups_seq(model, params["encoder"]["groups"], model.enc_group_specs,
-                                  model.n_enc_groups, frames, positions_enc, None, False)
+                                  model.n_enc_groups, frames, positions_enc, None, False,
+                                  remat=True)
         enc_states = L.rmsnorm(h, params["encoder"]["final_norm"], cfg.norm_eps)
 
     positions = torch.arange(S, device=x.device).expand(Btok, S)
@@ -173,7 +204,9 @@ def _embed_inputs(model: Model, params, batch):
 
 
 def forward_train(model: Model, params, batch, ce_chunk: int = 512):
-    """Scalar loss (CE + 0.01 * MoE aux), as a value: no backward on the card."""
+    """Scalar loss (CE + 0.01 * MoE aux).  The decoder's and the encoder's
+    group bodies run under remat; prefix layers are not wrapped, as in the
+    reference."""
     cfg = model.cfg
     x, positions, enc_states = _embed_inputs(model, params, batch)
     aux_total = 0.0
@@ -182,7 +215,7 @@ def forward_train(model: Model, params, batch, ce_chunk: int = 512):
         aux_total = aux_total + a
     if model.n_groups:
         x, aux, _ = _run_groups_seq(model, params["groups"], model.group_specs, model.n_groups,
-                                    x, positions, enc_states, False)
+                                    x, positions, enc_states, False, remat=True)
         aux_total = aux_total + aux
 
     h = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)

@@ -1,0 +1,118 @@
+"""Checkpointing with atomic writes, in the JAX package's layout.
+
+Layout:  <dir>/step_<N>/
+            manifest.json       — step, flat leaf index, shapes/dtypes
+            arrays.npz          — one entry per flattened leaf path
+         <dir>/LATEST           — atomically updated pointer
+
+Leaf paths join dict keys and tuple indices with ``/`` (dict keys sorted,
+as the reference flattens them), bfloat16 leaves are stored as their
+uint16 bits with dtype ``"bfloat16"`` in the manifest, and the files are
+written as the reference writes them, so a checkpoint written by either
+package restores in the other.  Writes go to a temp dir + atomic rename so
+a killed process never leaves a half-written checkpoint (launch/elastic.py
+kills mid-run to prove it).  Restore loads host-side and places every leaf
+on one device; elastic placement over a mesh (the reference's
+``shardings``) waits for the port's mesh slice.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import tempfile
+
+import numpy as np
+import torch
+
+from repro_torch.train import optimizer as Opt
+
+
+def _paths(tree, prefix=()) -> list[tuple[str, object]]:
+    """(path, leaf) pairs in ``Opt.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _paths(tree[k], prefix + (str(k),))]
+    if isinstance(tree, (tuple, list)):
+        return [x for i, v in enumerate(tree) for x in _paths(v, prefix + (str(i),))]
+    return [("/".join(prefix), tree)]
+
+
+def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
+    """A leaf as the array the file holds (bfloat16 as its uint16 bits) and
+    the dtype the manifest names."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    a = t.numpy()
+    return a, str(a.dtype)
+
+
+def save(ckpt_dir: str, step: int, state: dict) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    arrays = {}
+    dtypes = {}
+    for k, v in _paths(state):
+        arrays[k], dtypes[k] = _to_numpy(v)
+    manifest = {
+        "step": step,
+        "leaves": {
+            k: {"shape": list(a.shape), "dtype": dtypes[k]} for k, a in arrays.items()
+        },
+    }
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
+    try:
+        np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    # atomic LATEST pointer
+    ptr_tmp = os.path.join(ckpt_dir, ".LATEST.tmp")
+    with open(ptr_tmp, "w") as f:
+        f.write(f"step_{step:08d}")
+    os.replace(ptr_tmp, os.path.join(ckpt_dir, "LATEST"))
+    return final
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    ptr = os.path.join(ckpt_dir, "LATEST")
+    if not os.path.exists(ptr):
+        return None
+    with open(ptr) as f:
+        name = f.read().strip()
+    path = os.path.join(ckpt_dir, name, "manifest.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)["step"]
+
+
+def restore(ckpt_dir: str, like: dict, device: str | torch.device = "cpu") -> tuple[dict, int]:
+    """Restore into the structure of ``like`` (a tree of anything with a
+    ``shape``: tensors, arrays), every leaf a tensor on ``device`` in the
+    dtype it was saved with."""
+    step = latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    leaves = []
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        for key, ref in _paths(like):
+            arr = data[key]
+            bf16 = manifest["leaves"].get(key, {}).get("dtype") == "bfloat16"
+            if tuple(arr.shape) != tuple(ref.shape):
+                raise ValueError(f"{key}: shape {tuple(arr.shape)} in the checkpoint, "
+                                 f"{tuple(ref.shape)} expected")
+            t = torch.from_numpy(arr.view(np.int16) if bf16 else arr)
+            if bf16:
+                t = t.view(torch.bfloat16)
+            leaves.append(t.to(device))
+    return Opt.tree_unflatten(like, leaves), step

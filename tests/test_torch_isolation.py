@@ -1,9 +1,10 @@
-"""The port stands alone: it imports neither ``jax`` nor the JAX package.
+"""The port stands alone: it imports neither ``jax`` nor the JAX package,
+nor ``ml_dtypes`` (bfloat16 arrays travel as their uint16 bits).
 
-A subprocess whose ``sys.modules`` poisons ``jax`` and ``repro`` (an import
-of either raises) imports every module of ``repro_torch`` and runs a
-200-vector VeloANN search on the CPU.  A scan of the port's sources and of
-``chip_smoke.py`` finds no import of either.
+A subprocess whose ``sys.modules`` poisons ``jax``, ``repro`` and
+``ml_dtypes`` (an import of any raises) imports every module of
+``repro_torch`` and runs a 200-vector VeloANN search on the CPU.  A scan of the port's sources and of
+``chip_smoke.py`` finds no import of any of them.
 """
 
 import os
@@ -17,8 +18,9 @@ PORT = ROOT / "src" / "repro_torch"
 
 _CHILD = r"""
 import sys
-sys.modules["jax"] = None      # any import of jax / repro now raises
+sys.modules["jax"] = None      # any import of jax / repro / ml_dtypes now raises
 sys.modules["repro"] = None
+sys.modules["ml_dtypes"] = None
 import importlib, pkgutil
 import torch
 torch.set_num_threads(1)
@@ -53,10 +55,12 @@ NEW_MODULES = ("core.workload", "core.serving", "velo.index", "velo.batch_search
                "configs.llava_next_mistral_7b", "configs.whisper_small",
                "configs.rwkv6_7b", "configs.veloann",
                "models.config", "models.layers", "models.moe", "models.mamba",
-               "models.rwkv", "models.blocks", "models.model", "convert")
+               "models.rwkv", "models.blocks", "models.model", "convert",
+               "train.data", "train.optimizer", "train.train_step", "train.checkpoint",
+               "launch.train", "launch.elastic")
 
-_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|,|$)|from\s+repro(\.|\s))",
-                     re.MULTILINE)
+_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|,|$)|from\s+repro(\.|\s)"
+                     r"|import\s+ml_dtypes\b|from\s+ml_dtypes\b)", re.MULTILINE)
 
 
 def test_port_runs_with_jax_and_repro_poisoned():
@@ -79,4 +83,5 @@ def test_no_jax_or_repro_import_in_the_port_sources():
     assert hits == []
     # the scan itself finds what it is looking for
     assert _IMPORT.search("from repro.core import quant") and _IMPORT.search("import jax.numpy")
+    assert _IMPORT.search("    import ml_dtypes")
     assert not _IMPORT.search("from repro_torch.core import quant")

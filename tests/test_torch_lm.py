@@ -311,16 +311,36 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_chunked_attention_on_the_card_raises_when_a_gradient_is_required(cuda):
-    q = torch.randn(1, 2, 16, 16, device=cuda, requires_grad=True)
-    k = torch.randn(1, 1, 16, 16, device=cuda)
-    before = flash_kernel.launches
-    with pytest.raises(RuntimeError, match="no backward"):
-        L.chunked_attention(q, k, k)
-    assert flash_kernel.launches == before
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_attention_on_the_card_has_the_plain_gradient(dtype, cuda):
+    """With an input that requires a gradient, the card's chunked_attention
+    launches the flash kernel once for its forward; its gradient equals
+    autograd of the plain streaming recurrence on the same inputs, at the
+    kernel-vs-plain attention bars (the backward is that recurrence; the
+    forward's output feeds nothing back)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dt)
+               for s in ((2, 4, 48, 16), (2, 2, 48, 16), (2, 2, 48, 16)))
+    w = torch.randn((2, 4, 48, 16), generator=gen, device=cuda).to(dt)
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == "float32" else dict(rtol=1e-2, atol=1e-4)
+    for window in (0, 16):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = flash_kernel.launches
+        out = L.chunked_attention(*ins, window=window, block=16)
+        assert flash_kernel.launches == before + 1
+        grads = torch.autograd.grad((out.float() * w.float()).sum(), ins)
+        assert flash_kernel.launches == before + 1  # the backward is plain
+        plain_ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        want = L._streaming_attention(*plain_ins, True, window, 16, None)
+        want_grads = torch.autograd.grad((want.float() * w.float()).sum(), plain_ins)
+        torch.testing.assert_close(out.float(), want.float(), **tol)
+        for g, wg in zip(grads, want_grads):
+            assert g.dtype == dt
+            torch.testing.assert_close(g.float(), wg.float(), **tol)
     with torch.no_grad():
-        out = L.chunked_attention(q, k, k)  # no graph is asked for: the kernel runs
-    assert out.shape == q.shape and flash_kernel.launches == before + 1
+        out = L.chunked_attention(q.requires_grad_(True), k, v)  # no graph asked for
+    assert out.grad_fn is None and flash_kernel.launches == before + 2
 
 
 @pytest.mark.cuda
