@@ -89,7 +89,21 @@ Phases (each one that fails ends the run with a non-zero exit):
               plain attention backward, the optimizer); then the training
               CLI resumed after an injected failure (exit 42) against an
               uninterrupted run
- 12. report   one JSON line of per-kernel numbers, then the card line and the
+ 12. lm shard the mesh (models.sharding, launch.mesh) in a one-rank NCCL group
+              on the card, (data 1, model 1): Yi-6B at full width served
+              with params placed by param_pspecs and caches by cache_pspecs
+              (tokens equal to phase 10's, 32 flash launches a prefill);
+              TinyLlama-1.1B at full width, 3 AdamW steps of 2 microbatches
+              through the sharded step (grad_pspecs, batch_shardings)
+              against the unsharded step (44 flash launches a microbatch;
+              losses and parameters bitwise, else phase 11's bars); one
+              dbrx-132b MoE layer at full width (16 experts top-4, 4 096
+              tokens) through moe_ffn_ep against moe_ffn (equal); the dry
+              run's prediction for phase 11's batch at the 1 x 1 mesh beside
+              phase 11's measured peak, step time and MFU, and the
+              reference's test cell (rwkv6-7b long_500k pod1) on 256 fake
+              ranks in a child process
+ 13. report   one JSON line of per-kernel numbers, then the card line and the
               final {"ok": true, ...} line
 
 Imports torch, numpy and the port (src/repro_torch) only.
@@ -231,7 +245,7 @@ KERNELS = {
     "flash_attention": dict(source="src/repro_torch/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention/kernel.py:33",
                             counter=fa_kernel,
-                            paths=("attention kernels", "lm serve", "lm train"),
+                            paths=("attention kernels", "lm serve", "lm train", "lm shard"),
                             main=dict(shape=LM_FLASH_SHAPE, dtype="bfloat16")),
 }
 # kv serve: the pool cut so that 16 live requests of ~1 280 tokens (~1 300
@@ -1891,6 +1905,292 @@ def phase_lm_train(dev, card: str) -> dict:
     print("lm train:", json.dumps({k: v for k, v in out.items() if k != "reduced"}, default=float))
     return out
 
+# ----------------------------------------------------------------- phase 12
+
+
+# the lm shard phase: the mesh (models.sharding, launch.mesh) in a one-rank
+# NCCL group on the card; dbrx-132b's MoE layer at its published widths
+# (src/repro/configs/dbrx_132b.py: 16 experts top-4, d 6 144, d_ff 10 752,
+# bf16), 4 096 tokens
+SHARD_TRAIN_STEPS, SHARD_MICROBATCHES = 3, 2
+MOE_TOKENS = 4096
+# the dry run beside the card, in a child process (a fake group of 1 for
+# phase 11's own batch, then one of 256 for the reference's test cell)
+DRYRUN_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, "src")
+from repro_torch.launch import dryrun, mesh as mesh_mod, roofline, shapes
+B, S = int(sys.argv[1]), int(sys.argv[2])
+batch = {"tokens": shapes.S((B, S), shapes.I32), "labels": shapes.S((B, S), shapes.I32)}
+cell = shapes.CellSpec(kind="train", batch=batch, seq_len=S, global_batch=B)
+t0 = time.time()
+rec = dryrun.run_lm_cell("tinyllama-1.1b", "phase11", False, 1, cell=cell,
+                         mesh=mesh_mod.Mesh((1, 1), ("data", "model")))
+rec["wall_s"] = time.time() - t0
+rec["roofline"] = roofline.analyze(rec)
+print(json.dumps(rec))
+t0 = time.time()
+rec = dryrun.run_and_save("rwkv6-7b", "long_500k", False)
+rec["wall_s"] = time.time() - t0
+print(json.dumps(rec))
+"""
+
+
+def _nccl_mesh(dev):
+    """A one-rank NCCL process group on the card and its (data 1, model 1)
+    DeviceMesh, armed as the models' active mesh."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import sharding as Sh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    mesh = mesh_mod.Mesh((1, 1), ("data", "model"))
+    dmesh = mesh_mod.device_mesh(mesh, "cuda")
+    Sh.set_active_mesh(dmesh, dp_axes=mesh_mod.dp_axes(mesh))
+    for axis in mesh.axis_names:  # bring each group's communicator up before timing
+        Sh.all_reduce(torch.ones(1, device=dev), axis)
+    torch.cuda.synchronize()
+    return dmesh
+
+
+def _shard_serve(dev, dmesh, want_tokens) -> dict:
+    """Yi-6B at full width (phase 10's seeded weights and prompts), params
+    placed by ``param_pspecs``, decode caches by ``cache_pspecs``: prefill
+    (32 flash launches) and 16 greedy decode steps, tokens against phase
+    10's."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import sharding as Sh
+
+    cfg = lm_configs.get("yi-6b")
+    model = lm_model.build(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm_model.init_params(model, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_B, LM_PROMPT), generator=gen, device=dev)
+    specs, degraded = Sh.check_divisible(params, Sh.param_pspecs(params), dmesh)
+    placed = Sh.place(params, dmesh, Sh.named(dmesh, specs))
+
+    def put(t):
+        return Sh.place(t, dmesh, Sh.batch_placements(dmesh, t.shape[0], t.dim()))
+
+    out = dict(degraded=degraded)
+    with torch.no_grad():
+        n0 = fa_kernel.launches
+        (logits, pc), out["prefill_ms"], _ = _event_call(
+            lambda: lm_model.prefill(model, placed, {"tokens": put(tokens)}))
+        out["prefill_flash_launches"] = fa_kernel.launches - n0
+        caches = lm_model.init_decode_caches(model, LM_B, LM_PROMPT + LM_STEPS, device=dev)
+        cspecs = dryrun.cache_pspecs(model, caches, Sh.dp_axes(), LM_PROMPT + LM_STEPS)
+        caches = lm_model.load_prefill_caches(Sh.place(caches, dmesh, Sh.named(dmesh, cspecs)),
+                                              pc, model)
+        del pc
+        tok, toks, ms = logits.argmax(-1), [], []
+        for i in range(LM_STEPS):
+            (logits, caches), t, _ = _event_call(
+                lambda: lm_model.decode_step(model, placed, caches, put(tok), LM_PROMPT + i))
+            tok = logits.argmax(-1)
+            toks.append(tok)
+            ms.append(t)
+    got = torch.stack(toks, dim=1).cpu().tolist()
+    out.update(tokens_equal=got == want_tokens, decode_ms=float(np.median(ms)),
+               tokens=got)
+    del params, placed, caches
+    return out
+
+
+def _shard_train(dev, dmesh, unsharded_ms: float) -> dict:
+    """TinyLlama-1.1B at full width (phase 11's seeded weights and batches,
+    4 x 2 048 tokens, AdamW): 3 steps of 2 microbatches through the sharded
+    step (``grad_pspecs``, ``batch_shardings``) against the unsharded step
+    on the same weights."""
+    from repro_torch.models import sharding as Sh
+
+    cfg = lm_configs.get("tinyllama-1.1b")
+    model = lm_model.build(cfg)
+    opt_cfg = train_opt.OptConfig(lr=3e-4, total_steps=TRAIN_STEPS, warmup_steps=1)
+    p0, o0 = train_step.make_init(model, "adamw")(torch.Generator(device=dev).manual_seed(0))
+    batches = [{k: v.to(dev) for k, v in b.items()}
+               for b in _train_batches(cfg, TRAIN_B, TRAIN_S, SHARD_TRAIN_STEPS)]
+    specs, _ = Sh.check_divisible(p0, Sh.param_pspecs(p0), dmesh)
+    pl = Sh.named(dmesh, specs)
+    sp = Sh.place(p0, dmesh, pl)
+    so = {"m": Sh.place(o0["m"], dmesh, pl), "v": Sh.place(o0["v"], dmesh, pl),
+          "step": o0["step"]}
+    sstep = train_step.make_train_step(
+        model, "adamw", opt_cfg, microbatches=SHARD_MICROBATCHES, grad_pspecs=pl,
+        batch_shardings=lambda nd: Sh.batch_placements(dmesh, TRAIN_B // SHARD_MICROBATCHES, nd))
+    losses, ms, launched = [], [], []
+    for b in batches:
+        n0 = fa_kernel.launches
+        (sp, so, m), t, _ = _event_call(lambda: sstep(sp, so, {
+            k: Sh.place(v, dmesh, Sh.batch_placements(dmesh, v.shape[0], v.dim()))
+            for k, v in b.items()}))
+        launched.append(fa_kernel.launches - n0)
+        losses.append(float(m["loss"]))
+        ms.append(t)
+    sharded = [t.to_local() for t in train_opt.tree_leaves(sp)]
+    del so
+    # the unsharded step on the same weights and batches, outside the mesh
+    Sh.clear_active_mesh()
+    step = train_step.make_train_step(model, "adamw", opt_cfg, microbatches=SHARD_MICROBATCHES)
+    p, o, ref, ref_ms = p0, o0, [], []
+    for b in batches:
+        (p, o, m), t, _ = _event_call(lambda: step(p, o, b))
+        ref.append(float(m["loss"]))
+        ref_ms.append(t)
+    Sh.set_active_mesh(dmesh, dp_axes=("data",))
+    # phase 11's bar where not bitwise: every entry within Adam's worst case
+    lrs = [float(train_opt.schedule(opt_cfg, torch.tensor(t, dtype=torch.int32)))
+           for t in range(1, SHARD_TRAIN_STEPS + 1)]
+    b1, b2 = opt_cfg.betas
+    worst = 2 * sum(lr * adam_ratio_bound(b1, b2, t) for t, lr in enumerate(lrs, 1))
+    diffs, over = [], 0
+    for a, b in zip(sharded, train_opt.tree_leaves(p)):
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        diffs.append(float(d.max()))
+        over += int((d > worst + SHARD_TRAIN_STEPS * BF16_ULP * torch.maximum(a.abs(), b.abs()))
+                    .sum())
+    out = dict(losses=losses, unsharded_losses=ref, losses_bitwise=losses == ref,
+               loss_max_rel_err=max(abs(a - b) / abs(b) for a, b in zip(losses, ref)),
+               params_bitwise=max(diffs) == 0.0, params_max_abs_err=max(diffs),
+               adam_worst_case=worst, entries_over_worst_case=over,
+               flash_launches_per_step=launched, step_ms_each=ms,
+               step_ms=float(np.median(ms[1:])), unsharded_step_ms=float(np.median(ref_ms[1:])),
+               phase11_step_ms=unsharded_ms)
+    del sp, p, o, p0, o0, sharded
+    return out
+
+
+def _shard_moe(dev, dmesh) -> dict:
+    """One dbrx-132b MoE layer at full width on 4 096 tokens: ``moe_ffn_ep``
+    under the mesh against ``moe_ffn``, on the same seeded weights."""
+    from repro_torch.models import moe
+    from repro_torch.models import sharding as Sh
+
+    cfg = lm_configs.get("dbrx-132b")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = moe.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.n_shared_experts,
+                     torch.bfloat16)
+    x = torch.randn(MOE_TOKENS, cfg.d_model, generator=gen, device=dev).bfloat16()
+    tree = {"moe": p}
+    specs, _ = Sh.check_divisible(tree, Sh.param_pspecs(tree), dmesh)
+    placed = Sh.place(tree, dmesh, Sh.named(dmesh, specs))["moe"]
+    with torch.no_grad():  # each timed on its second call
+        for _ in range(2):
+            (ep, aux_ep), ep_ms, _ = _event_call(
+                lambda: moe.moe_ffn_ep(placed, x, cfg.moe_top_k, cfg.capacity_factor))
+        Sh.clear_active_mesh()
+        for _ in range(2):
+            (ref, aux), ref_ms, _ = _event_call(
+                lambda: moe.moe_ffn(p, x, cfg.moe_top_k, cfg.capacity_factor))
+        Sh.set_active_mesh(dmesh, dp_axes=("data",))
+    out = dict(expert_gb=sum(p[k].numel() * 2 for k in ("w_gate", "w_up", "w_down")) / 1e9,
+               equal=bool(torch.equal(ep, ref)) and float(aux_ep) == float(aux),
+               max_abs_err=float((ep.float() - ref.float()).abs().max()),
+               ep_ms=ep_ms, moe_ffn_ms=ref_ms, finite=bool(torch.isfinite(ep.float()).all()))
+    del p, placed, x, ep, ref
+    return out
+
+
+def _dryrun_beside(train: dict) -> dict:
+    """The dry run's prediction for phase 11's batch at the 1 x 1 mesh beside
+    phase 11's measurement, and the reference's test cell on 256 fake ranks
+    (a child process: the dry run's group is a fake one)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", DRYRUN_CHILD, str(TRAIN_B), str(TRAIN_S)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"lm shard: the dry run failed: {proc.stderr[-2000:]}")
+    cell, prod = (json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{"))
+    cfg = lm_configs.get("tinyllama-1.1b")
+    n_active = cfg.active_params_count()
+    step_s = train["step_ms"] / 1e3
+    out = dict(wall_s=time.perf_counter() - t0,
+               predicted=dict(peak_gib=cell["memory"]["peak_estimate_bytes"] / 2**30,
+                              argument_gib=cell["memory"]["argument_bytes"] / 2**30,
+                              step_flops=cell["cost"]["flops_per_device"],
+                              model_flops=cell["roofline"]["model_flops_per_device"],
+                              t_compute_s=cell["roofline"]["t_compute_s"],
+                              t_memory_s=cell["roofline"]["t_memory_s"],
+                              t_collective_s=cell["roofline"]["t_collective_s"],
+                              dominant=cell["roofline"]["dominant"], trace_wall_s=cell["wall_s"]),
+               measured=dict(peak_gib=train["peak_gb"] * 1e9 / 2**30, step_s=step_s,
+                             mfu=6 * n_active * TRAIN_B * TRAIN_S / step_s / BF16_FLOP_PER_S,
+                             flops_per_s_at_predicted=cell["cost"]["flops_per_device"] / step_s),
+               production=dict(status=prod["status"], n_devices=prod.get("n_devices"),
+                               flops_per_device=prod.get("cost", {}).get("flops_per_device"),
+                               peak_gib=prod.get("memory", {}).get("peak_estimate_bytes", 0)
+                               / 2**30, wall_s=prod["wall_s"]))
+    require(cell["status"] == "ok", f"lm shard: the 1 x 1 dry-run cell: {cell.get('error')}")
+    p = out["production"]
+    require(p["status"] == "ok" and p["n_devices"] == 256 and p["flops_per_device"] > 0
+            and p["peak_gib"] < 80, f"lm shard: the rwkv6-7b long_500k pod1 cell: {p}")
+    return out
+
+
+def phase_lm_shard(dev, card: str, lm: dict, train: dict) -> dict:
+    """The mesh on the card: a one-rank NCCL group and a (data 1, model 1)
+    mesh; Yi-6B served under it (tokens equal to phase 10's, 32 flash
+    launches a prefill); TinyLlama-1.1B trained through the sharded step
+    against the unsharded one (44 flash launches a microbatch); one dbrx MoE
+    layer through ``moe_ffn_ep`` against ``moe_ffn``; the dry run's
+    prediction beside phase 11's measurement, and a production cell."""
+    import torch.distributed as dist
+
+    from repro_torch.models import sharding as Sh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(card=card)
+    dmesh = _nccl_mesh(dev)
+    try:
+        reset_launches()  # the main path, counted
+        out["serve"] = _shard_serve(dev, dmesh, lm["tokens"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out["train"] = _shard_train(dev, dmesh, train["step_ms"])
+        out["train"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["launches"] = read_launches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["moe"] = _shard_moe(dev, dmesh)
+    finally:
+        Sh.clear_active_mesh()
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["dryrun"] = _dryrun_beside(train)
+    print("lm shard:", json.dumps(out, default=float))
+    sv, tr, mo = out["serve"], out["train"], out["moe"]
+    n_attn = sum(1 for i in range(lm_configs.get("yi-6b").n_layers)
+                 if lm_configs.get("yi-6b").layer_kind(i) == "attn")
+    require(sv["prefill_flash_launches"] == n_attn,
+            f"lm shard: the Yi-6B prefill under the mesh launched flash_attention "
+            f"{sv['prefill_flash_launches']} times, not {n_attn}")
+    require(sv["tokens_equal"], "lm shard: Yi-6B's greedy tokens under the mesh differ from "
+            "phase 10's")
+    per_mb = _flash_per_step(lm_configs.get("tinyllama-1.1b"))
+    require(all(n == per_mb * SHARD_MICROBATCHES for n in tr["flash_launches_per_step"]),
+            f"lm shard: each sharded step must launch flash_attention {per_mb} times a "
+            f"microbatch: {tr['flash_launches_per_step']}")
+    tol = TRAIN_LOSS_TOL[torch.bfloat16]
+    require(all(np.isfinite(tr["losses"])) and all(
+        np.isclose(a, b, **tol) for a, b in zip(tr["losses"], tr["unsharded_losses"])),
+        f"lm shard: sharded losses {tr['losses']} against {tr['unsharded_losses']}")
+    require(tr["params_bitwise"] or tr["entries_over_worst_case"] == 0,
+            f"lm shard: {tr['entries_over_worst_case']} sharded parameters beyond Adam's worst "
+            f"case off the unsharded step's")
+    require(mo["equal"] and mo["finite"], f"lm shard: moe_ffn_ep differs from moe_ffn: "
+            f"{mo['max_abs_err']}")
+    return out
+
 
 # ------------------------------------------------------------------ main
 
@@ -1949,6 +2249,8 @@ def main() -> int:
     phase_s["lm serve"] = time.perf_counter() - t0 - sum(phase_s.values())
     train = phase_lm_train(dev, card)
     phase_s["lm train"] = time.perf_counter() - t0 - sum(phase_s.values())
+    shard = phase_lm_shard(dev, card, lm, train)
+    phase_s["lm shard"] = time.perf_counter() - t0 - sum(phase_s.values())
     print(f"phase seconds on {card}:", json.dumps(phase_s))
 
     # each phase's launches by kernel, summed over that phase's main runs
@@ -1961,6 +2263,7 @@ def main() -> int:
         "attention kernels": attn_launches,
         "lm serve": lm["launches"],
         "lm train": {n: train["launches"][n] + train["cli"]["launches"][n] for n in KERNELS},
+        "lm shard": shard["launches"],
     }
     report = []
     for name, spec in KERNELS.items():
@@ -1984,7 +2287,7 @@ def main() -> int:
         dict(card=card, kernels=report, launches_by_phase=path_launches, shapes=rows,
              attention=attn_rows, tables=tables, search=search, serving_plane=plane,
              velo_device=velo, kv_serve=kv, verify=verify, lm_serve=lm, lm_train=train,
-             phase_s=phase_s,
+             lm_shard=shard, phase_s=phase_s,
              sass=sass),
         indent=1, default=float))
     print(json.dumps({"kernels": report}))

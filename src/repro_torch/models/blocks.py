@@ -5,9 +5,17 @@ A layer is described by a LayerSpec (static): kind (attn|mamba|rwkv),
 sliding window, MoE-ness, cross-attention.  model.py stacks layers into
 groups.  Decode writes the new token's K/V, and the recurrent states, into
 the cache tensors in place (the reference returns updated copies), the
-rolling-window index of sliding-window layers included.  The reference's
-activation-layout hints (``constrain_act``) do nothing without a mesh and
-are left out.
+rolling-window index of sliding-window layers included.
+
+Under an active mesh (``models.sharding``) a layer runs as this rank's part
+of the sharded step: its weights are gathered at use (FSDP over the DP
+axes), attention splits its heads and the dense FFN its columns over
+'model' (Megatron TP, one all-reduce each), the MoE runs ``moe_ffn_ep``,
+mamba splits its d_inner channels and rwkv its heads over 'model' as the
+weights' specs do (``Sh.channel_split``; else they run replicated).
+Decode reads caches sharded by ``launch.dryrun.cache_pspecs``: a KV cache
+whose sequence is split combines the ranks' softmax partials, and a
+recurrent state is read and written as this rank's channels.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MoE
 from repro_torch.models import rwkv as R
+from repro_torch.models import sharding as Sh
 from repro_torch.models.config import ModelConfig
 
 
@@ -99,8 +108,11 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
 
 
 def _attn_seq(p, x, cfg, window, positions, kv_override=None, causal=True):
+    """Heads from the weights' widths: all of them, or a rank's share under
+    a mesh."""
     B, S, _ = x.shape
-    H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dh = cfg.d_head
+    H, KVH = p["wq"].shape[1] // dh, p["wk"].shape[1] // dh
     q = (x @ p["wq"]).reshape(B, S, H, dh).transpose(1, 2)
     if kv_override is None:
         k = (x @ p["wk"]).reshape(B, S, KVH, dh).transpose(1, 2)
@@ -120,45 +132,70 @@ def _attn_seq(p, x, cfg, window, positions, kv_override=None, causal=True):
 def cross_kv(p_attn, enc_states, cfg):
     """Project encoder states to this layer's cross K/V: (B, KVH, T, dh)."""
     B, T, _ = enc_states.shape
-    KVH, dh = cfg.n_kv_heads, cfg.d_head
+    dh = cfg.d_head
+    KVH = p_attn["wk"].shape[1] // dh
     k = (enc_states @ p_attn["wk"]).reshape(B, T, KVH, dh)
     v = (enc_states @ p_attn["wv"]).reshape(B, T, KVH, dh)
     return k.transpose(1, 2), v.transpose(1, 2)
 
 
-def _ffn_or_moe(p, x, cfg, spec):
+def _ffn_or_moe(p, x, cfg, spec, dp_split):
     if spec.is_moe:
         B, S, d = x.shape
-        out, aux = MoE.moe_ffn(p["moe"], x.reshape(B * S, d), cfg.moe_top_k,
-                               cfg.capacity_factor)
+        out, aux = MoE.moe_ffn_auto(p["moe"], x.reshape(B * S, d), cfg.moe_top_k,
+                                    cfg.capacity_factor, dp_split)
         return out.reshape(B, S, d), aux
-    return L.swiglu(x, p["ffn"]["w_gate"], p["ffn"]["w_up"], p["ffn"]["w_down"]), 0.0
+    return L.swiglu_ffn(p["ffn"], x), 0.0
+
+
+def _attn_block(p, x, cfg, window, positions, causal=True, kv_override=None):
+    """Attention (self, or cross with ``kv_override`` = the encoder states)
+    on normalized ``x``: (out, (k, v)).  Under a mesh a rank runs its query
+    heads and their KV heads and the ranks' outputs are summed, when the
+    heads split (``Sh.head_split``); else every rank runs all heads."""
+    if not Sh.active():
+        kv = None if kv_override is None else cross_kv(p, kv_override, cfg)
+        return _attn_seq(p, x, cfg, window, positions, kv_override=kv, causal=causal)
+    split = Sh.head_split(cfg)
+    pl = Sh.attn_local(p, cfg, split)
+    x = Sh.enter_tp(x, split is not None)
+    kv = None
+    if kv_override is not None:
+        kv = cross_kv(pl, Sh.enter_tp(kv_override, split is not None), cfg)
+    out, (k, v) = _attn_seq(pl, x, cfg, window, positions, kv_override=kv, causal=causal)
+    return Sh.leave_tp(out, split is not None), (k, v)
 
 
 def layer_seq(p, x, cfg: ModelConfig, spec: LayerSpec, positions, enc_states=None,
-              want_cache=False):
-    """x (B, S, d) -> (x, cache, aux). cache=None unless want_cache."""
+              want_cache=False, dp_split=True):
+    """x (B, S, d) -> (x, cache, aux). cache=None unless want_cache.
+    ``dp_split`` (under a mesh): x holds this rank's DP rows, not every
+    rank's."""
     aux = 0.0
     cache = None
+    x = Sh.constrain_act(x)  # anchor the residual-stream layout (Megatron DP)
+    norm = {k: Sh.use(p[k]) for k in ("norm1", "norm_x", "norm2") if k in p}
     if spec.kind == "attn":
-        h, (k, v) = _attn_seq(p["attn"], L.rmsnorm(x, p["norm1"], cfg.norm_eps), cfg,
-                              spec.window, positions, causal=spec.causal)
+        h, (k, v) = _attn_block(p["attn"], L.rmsnorm(x, norm["norm1"], cfg.norm_eps), cfg,
+                                spec.window, positions, causal=spec.causal)
         x = x + h
         if want_cache:
             cache = {"k": k, "v": v}
         if spec.cross:
             if enc_states is None:
                 raise ValueError("layer_seq: a cross-attention layer needs enc_states")
-            ck, cv = cross_kv(p["cross"], enc_states, cfg)
-            hx, _ = _attn_seq(p["cross"], L.rmsnorm(x, p["norm_x"], cfg.norm_eps), cfg, 0,
-                              positions, kv_override=(ck, cv))
+            hx, (ck, cv) = _attn_block(p["cross"], L.rmsnorm(x, norm["norm_x"], cfg.norm_eps),
+                                       cfg, 0, positions, kv_override=enc_states)
             x = x + hx
             if want_cache:
                 cache = dict(cache or {}, ck=ck, cv=cv)
-        h, aux = _ffn_or_moe(p, L.rmsnorm(x, p["norm2"], cfg.norm_eps), cfg, spec)
-        x = x + h
+        h, aux = _ffn_or_moe(p, L.rmsnorm(x, norm["norm2"], cfg.norm_eps), cfg, spec,
+                             dp_split)
+        x = Sh.constrain_act(x + h)
     elif spec.kind == "mamba":
-        x = x + M.mamba_seq(p["mamba"], L.rmsnorm(x, p["norm1"], cfg.norm_eps))
+        split = Sh.channel_split(cfg.d_inner)
+        x = x + M.mamba_seq(Sh.mamba_local(p["mamba"], split),
+                            L.rmsnorm(x, norm["norm1"], cfg.norm_eps), split=split)
         if want_cache:
             # the reference hands back ZERO recurrent state at the
             # prefill->decode handoff (not the state the scan ended in)
@@ -167,11 +204,14 @@ def layer_seq(p, x, cfg: ModelConfig, spec: LayerSpec, positions, enc_states=Non
                 "conv": x.new_zeros((B, cfg.ssm_conv - 1, cfg.d_inner)),
                 "ssm": x.new_zeros((B, cfg.d_inner, cfg.ssm_state), dtype=torch.float32),
             }
-        h, aux = _ffn_or_moe(p, L.rmsnorm(x, p["norm2"], cfg.norm_eps), cfg, spec)
-        x = x + h
+        h, aux = _ffn_or_moe(p, L.rmsnorm(x, norm["norm2"], cfg.norm_eps), cfg, spec,
+                             dp_split)
+        x = Sh.constrain_act(x + h)
     elif spec.kind == "rwkv":
-        x = x + R.time_mix_seq(p["rwkv"], x, cfg.n_heads)
-        x = x + R.channel_mix_seq(p["rwkv"], x)
+        split = Sh.channel_split(cfg.n_heads)
+        pr = Sh.rwkv_local(p["rwkv"], split)
+        x = x + R.time_mix_seq(pr, x, cfg.n_heads, split=split)
+        x = x + R.channel_mix_seq(pr, x, split)
         if want_cache:  # zero state at the handoff, as in the reference
             B, D = x.shape[0], cfg.d_model
             dh = D // cfg.n_heads
@@ -189,10 +229,15 @@ def layer_seq(p, x, cfg: ModelConfig, spec: LayerSpec, positions, enc_states=Non
 
 def _attn_decode(p, x, cfg, window, cache, pos: int):
     """x (B, d); cache k/v (B, KVH, S, dh), into which the new token is
-    written at ``pos`` (in place)."""
+    written at ``pos`` (in place).  Under a mesh the projections run
+    replicated over 'model' and each rank attends over its part of a
+    sequence-split cache (``Sh.decode_attention``)."""
     B, _ = x.shape
     H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    klen = cache["k"].shape[2]
+    k_cache, v_cache = Sh.local_t(cache["k"]), Sh.local_t(cache["v"])
+    S_loc = k_cache.shape[2]
+    seq_axes, lo = Sh.seq_split(cache["k"], 2)
+    klen = S_loc * Sh.size(seq_axes)
     q = (x @ p["wq"]).reshape(B, H, dh)
     k_new = (x @ p["wk"]).reshape(B, KVH, dh)
     v_new = (x @ p["wv"]).reshape(B, KVH, dh)
@@ -205,51 +250,75 @@ def _attn_decode(p, x, cfg, window, cache, pos: int):
     # klen slots are in-window by construction (RoPE carries absolute
     # positions and softmax is order-invariant).
     write_idx = pos % klen if window > 0 else pos
-    cache["k"][:, :, write_idx] = k_new
-    cache["v"][:, :, write_idx] = v_new
-    out = L.decode_attention(q, cache["k"], cache["v"], context_len=min(pos + 1, klen))
+    if lo <= write_idx < lo + S_loc:
+        k_cache[:, :, write_idx - lo] = k_new
+        v_cache[:, :, write_idx - lo] = v_new
+    out = _cached_attention(q, k_cache, v_cache, min(pos + 1, klen), seq_axes, lo)
     return out.reshape(B, H * dh) @ p["wo"]
 
 
-def _ffn_decode(p, x, cfg, spec):
-    xf = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
+def _cached_attention(q, k, v, context_len: int, seq_axes, lo: int):
+    """Decode attention over this rank's part of a cache whose sequence the
+    axes ``seq_axes`` split (none: the whole cache)."""
+    if seq_axes:
+        return Sh.decode_attention(q, k, v, context_len, lo, seq_axes)
+    return L.decode_attention(q, k, v, context_len=context_len)
+
+
+def _cross_decode(p, x, cfg, ck, cv):
+    B = x.shape[0]
+    H, dh = cfg.n_heads, cfg.d_head
+    q = (x @ p["wq"]).reshape(B, H, dh)
+    seq_axes, lo = Sh.seq_split(ck, 2)
+    ck, cv = Sh.local_t(ck), Sh.local_t(cv)
+    out = _cached_attention(q, ck, cv, ck.shape[2] * Sh.size(seq_axes), seq_axes, lo)
+    return out.reshape(B, H * dh) @ p["wo"]
+
+
+def _ffn_decode(p, x, cfg, spec, norm2, dp_split):
+    xf = L.rmsnorm(x, norm2, cfg.norm_eps)
     if spec.is_moe:
-        return MoE.moe_ffn(p["moe"], xf, cfg.moe_top_k, cfg.capacity_factor)
-    return L.swiglu(xf[:, None, :], p["ffn"]["w_gate"], p["ffn"]["w_up"],
-                    p["ffn"]["w_down"])[:, 0], 0.0
+        return MoE.moe_ffn_auto(p["moe"], xf, cfg.moe_top_k, cfg.capacity_factor, dp_split)
+    return L.swiglu_ffn(p["ffn"], xf[:, None, :])[:, 0], 0.0
 
 
-def layer_decode(p, x, cfg: ModelConfig, spec: LayerSpec, cache: dict, pos: int):
+def layer_decode(p, x, cfg: ModelConfig, spec: LayerSpec, cache: dict, pos: int,
+                 dp_split=True):
     """x (B, d) one token -> (x, aux); ``cache`` (this layer's dict) is
     updated in place.  Cross K/V come from the cache (computed once at
-    prefill)."""
+    prefill).  ``dp_split`` as in ``layer_seq``."""
     aux = 0.0
+    norm = {k: Sh.use(p[k]) for k in ("norm1", "norm_x", "norm2") if k in p}
     if spec.kind == "attn":
-        x = x + _attn_decode(p["attn"], L.rmsnorm(x, p["norm1"], cfg.norm_eps), cfg,
-                             spec.window, cache, pos)
+        x = x + _attn_decode(Sh.use_tree(p["attn"]), L.rmsnorm(x, norm["norm1"], cfg.norm_eps),
+                             cfg, spec.window, cache, pos)
         if spec.cross:
-            B = x.shape[0]
-            H, dh = cfg.n_heads, cfg.d_head
-            xq = L.rmsnorm(x, p["norm_x"], cfg.norm_eps)
-            q = (xq @ p["cross"]["wq"]).reshape(B, H, dh)
-            out = L.decode_attention(q, cache["ck"], cache["cv"], context_len=cache["ck"].shape[2])
-            x = x + out.reshape(B, H * dh) @ p["cross"]["wo"]
-        h, aux = _ffn_decode(p, x, cfg, spec)
+            xq = L.rmsnorm(x, norm["norm_x"], cfg.norm_eps)
+            x = x + _cross_decode(Sh.use_tree(p["cross"]), xq, cfg, cache["ck"], cache["cv"])
+        h, aux = _ffn_decode(p, x, cfg, spec, norm["norm2"], dp_split)
         x = x + h
     elif spec.kind == "mamba":
-        (conv, ssm), h = M.mamba_decode(p["mamba"], (cache["conv"], cache["ssm"]),
-                                        L.rmsnorm(x, p["norm1"], cfg.norm_eps))
-        cache["conv"].copy_(conv)
-        cache["ssm"].copy_(ssm)
+        split = Sh.channel_split(cfg.d_inner)
+        dims = {"conv": 2 if split else None, "ssm": 1 if split else None}
+        state = [Sh.state_part(cache[k], d) for k, d in dims.items()]
+        new, h = M.mamba_decode(Sh.mamba_local(p["mamba"], split), state,
+                                L.rmsnorm(x, norm["norm1"], cfg.norm_eps), split)
+        for (k, d), t in zip(dims.items(), new):
+            Sh.state_put_part(cache[k], t, d)
         x = x + h
-        h, aux = _ffn_decode(p, x, cfg, spec)
+        h, aux = _ffn_decode(p, x, cfg, spec, norm["norm2"], dp_split)
         x = x + h
     elif spec.kind == "rwkv":
-        ts, wkv, out = R.time_mix_decode(p["rwkv"], cache["tshift"], cache["wkv"], x,
-                                         cfg.n_heads)
+        split = Sh.channel_split(cfg.n_heads)
+        pr = Sh.rwkv_local(p["rwkv"], split)
+        heads = 1 if split else None
+        ts, wkv, out = R.time_mix_decode(pr, Sh.state_full(cache["tshift"]),
+                                         Sh.state_part(cache["wkv"], heads), x, cfg.n_heads,
+                                         split)
         x = x + out
-        cs, out2 = R.channel_mix_decode(p["rwkv"], cache["cshift"], x)
+        cs, out2 = R.channel_mix_decode(pr, Sh.state_full(cache["cshift"]), x, split)
         x = x + out2
-        for name, new in (("tshift", ts), ("wkv", wkv), ("cshift", cs)):
-            cache[name].copy_(new)
+        Sh.state_put(cache["tshift"], ts)
+        Sh.state_put_part(cache["wkv"], wkv, heads)
+        Sh.state_put(cache["cshift"], cs)
     return x, aux

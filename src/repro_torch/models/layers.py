@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import sharding as Sh
 
 NEG_INF = -1e30
 
@@ -52,6 +53,19 @@ def swiglu(x, w_gate, w_up, w_down):
     u = x @ w_up
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ w_down
+
+
+def swiglu_ffn(p: dict, x):
+    """The FFN of a weight dict (w_gate, w_up, w_down); under a mesh its
+    columns split over 'model' when they divide (one all-reduce of the
+    output), else it runs replicated."""
+    if not Sh.active():
+        return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    tp = Sh.global_dim(p["w_gate"], 1) % Sh.tp_size() == 0
+    cols, rows = (("local", 1), ("local", 0)) if tp else (None, None)
+    h = swiglu(Sh.enter_tp(x, tp), Sh.use(p["w_gate"], cols), Sh.use(p["w_up"], cols),
+               Sh.use(p["w_down"], rows))
+    return Sh.leave_tp(h, tp)
 
 
 # --------------------------------------------------------------- attention
@@ -195,6 +209,13 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens.long()]
 
 
+def logz_gold(logits: torch.Tensor, labels: torch.Tensor):
+    """Each position's log-sum-exp and logit of its label (labels < 0 read
+    column 0)."""
+    return (torch.logsumexp(logits, dim=-1),
+            logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0])
+
+
 def chunked_ce_loss(
     h: torch.Tensor,          # (B, S, D) final hidden states
     labels: torch.Tensor,     # (B, S) int, -100 = ignore
@@ -203,6 +224,15 @@ def chunked_ce_loss(
 ) -> torch.Tensor:
     """Cross-entropy over chunks of ``chunk`` positions, without the whole
     (B, S, V) logits at once."""
+    tot, cnt = chunked_ce_sums(h, labels, unembed, chunk)
+    return tot / torch.clamp_min(cnt, 1)
+
+
+def chunked_ce_sums(h, labels, unembed, chunk: int = 512, scores=logz_gold):
+    """(sum of the labelled positions' losses (fp32), their count), over
+    chunks of ``chunk`` positions.  ``scores(logits, labels) -> (logz,
+    gold)`` reads a chunk's fp32 logits (a vocabulary split over ranks
+    combines the ranks' parts there)."""
     B, S, D = h.shape
     nb = -(-S // chunk)
     pad = nb * chunk - S
@@ -214,17 +244,19 @@ def chunked_ce_loss(
     for i in range(nb):
         ll = lp[:, i * chunk:(i + 1) * chunk]
         logits = hp[:, i * chunk:(i + 1) * chunk].float() @ w
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, ll.clamp_min(0)[..., None])[..., 0]
+        logz, gold = scores(logits, ll)
         valid = ll >= 0
         tot = tot + torch.where(valid, logz - gold, 0.0).sum()
         cnt = cnt + valid.sum()
-    return tot / torch.clamp_min(cnt, 1)
+    return tot, cnt
 
 
 def init_linear(gen: torch.Generator, shape, scale=None, dtype=torch.bfloat16):
     """Normal(0, scale) weights drawn from ``gen`` on its device, scale
-    defaulting to ``shape[0] ** -0.5``."""
+    defaulting to ``shape[0] ** -0.5``; on the meta device nothing is
+    drawn (``models.model.params_specs``)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     scale = scale if scale is not None else shape[0] ** -0.5
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
     return (w * scale).to(dtype)

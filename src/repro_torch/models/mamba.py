@@ -5,6 +5,13 @@ runs the chunked selective scan (log-space cumulative decays within chunks
 of ``chunk`` steps, state carried across chunks) or the per-step
 recurrence, its oracle; decode is the same cell applied once to the carried
 (conv_state, ssm_state).  The state is fp32 throughout.
+
+``split`` (under a mesh, ``models.sharding``): ``p`` holds this rank's
+chunk of the d_inner channels (``Sharding.mamba_local``), as the
+reference's specs split them over 'model'.  The input enters the split
+region (its gradient summed over 'model'), the three products that
+contract the channels (dt's low rank, B, C) are summed over 'model', and
+the output projection's partial sums are summed over 'model'.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as Sh
 
 
 def init_mamba(gen: torch.Generator, d_model: int, d_inner: int, N: int, dt_rank: int,
@@ -50,48 +58,55 @@ def _pre(p, x):
     return x1, z
 
 
-def _conv_scan_inputs(p, x1):
+def _conv_scan_inputs(p, x1, split=False):
     S = x1.shape[1]
     K = p["conv_w"].shape[0]
     xp = F.pad(x1, (0, 0, K - 1, 0))
     xc = sum(xp[:, i:i + S, :] * p["conv_w"][i][None, None, :] for i in range(K)) + p["conv_b"]
     xc = F.silu(xc.float()).to(x1.dtype)
-    dt = F.softplus((xc @ p["w_dt1"]) @ p["w_dt2"] + p["dt_bias"]).float()  # (B, S, di)
-    Bm = (xc @ p["w_B"]).float()
-    Cm = (xc @ p["w_C"]).float()
+    dt, Bm, Cm = _low_rank(p, xc, split)
     return xc, dt, Bm, Cm
 
 
-def _out(p, x, y, xc, z):
+def _low_rank(p, xc, split):
+    """dt (through its low rank), B and C of the conv output ``xc``: each
+    product over the channels summed over 'model' when they split."""
+    dt = F.softplus(Sh.psum_tp(xc @ p["w_dt1"], split) @ p["w_dt2"] + p["dt_bias"]).float()
+    Bm = Sh.psum_tp(xc @ p["w_B"], split).float()
+    Cm = Sh.psum_tp(xc @ p["w_C"], split).float()
+    return dt, Bm, Cm
+
+
+def _out(p, x, y, xc, z, split=False):
     y = y.to(x.dtype) + p["D"].to(x.dtype) * xc
     y = y * F.silu(z.float()).to(x.dtype)
-    return y @ p["out_proj"]
+    return Sh.leave_tp(y @ p["out_proj"], split)
 
 
-def mamba_seq(p, x: torch.Tensor, chunk: int = 32) -> torch.Tensor:
+def mamba_seq(p, x: torch.Tensor, chunk: int = 32, split: bool = False) -> torch.Tensor:
     """Training/prefill path. x (B, S, d_model) -> (B, S, d_model): the
     chunked form for S > 1."""
     if chunk and x.shape[1] > 1:
-        return mamba_seq_chunked(p, x, chunk=chunk)
-    return mamba_seq_recurrent(p, x)
+        return mamba_seq_chunked(p, x, chunk=chunk, split=split)
+    return mamba_seq_recurrent(p, x, split)
 
 
-def mamba_seq_recurrent(p, x: torch.Tensor) -> torch.Tensor:
+def mamba_seq_recurrent(p, x: torch.Tensor, split: bool = False) -> torch.Tensor:
     """Per-step recurrence (the tests' oracle for the chunked form)."""
     B, S, _ = x.shape
     N = p["w_B"].shape[1]
     di = p["D"].shape[0]
-    x1, z = _pre(p, x)
-    xc, dt, Bm, Cm = _conv_scan_inputs(p, x1)
+    x1, z = _pre(p, Sh.enter_tp(x, split))
+    xc, dt, Bm, Cm = _conv_scan_inputs(p, x1, split)
     h = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
     ys = []
     for t in range(S):
         h, y = _cell(p, h, xc[:, t].float(), dt[:, t], Bm[:, t], Cm[:, t])
         ys.append(y)
-    return _out(p, x, torch.stack(ys, dim=1), xc, z)
+    return _out(p, x, torch.stack(ys, dim=1), xc, z, split)
 
 
-def mamba_seq_chunked(p, x: torch.Tensor, chunk: int = 32) -> torch.Tensor:
+def mamba_seq_chunked(p, x: torch.Tensor, chunk: int = 32, split: bool = False) -> torch.Tensor:
     """Chunked selective scan: the diagonal recurrence
         h_t = a_t (.) h_{t-1} + b_t,   a_t = exp(dt_t A),  b_t = dt_t x_t B_t
     unrolls within a chunk of c steps via log-space cumulative decays:
@@ -101,8 +116,8 @@ def mamba_seq_chunked(p, x: torch.Tensor, chunk: int = 32) -> torch.Tensor:
     B, S, _ = x.shape
     N = p["w_B"].shape[1]
     di = p["D"].shape[0]
-    x1, z = _pre(p, x)
-    xc, dt, Bm, Cm = _conv_scan_inputs(p, x1)
+    x1, z = _pre(p, Sh.enter_tp(x, split))
+    xc, dt, Bm, Cm = _conv_scan_inputs(p, x1, split)
 
     pad = (-S) % chunk
     xcf = F.pad(xc.float(), (0, 0, 0, pad))
@@ -125,22 +140,21 @@ def mamba_seq_chunked(p, x: torch.Tensor, chunk: int = 32) -> torch.Tensor:
         ys.append(torch.einsum("bcdn,bcn->bcd", h, Ck))
         h0 = h[:, -1]
     y = torch.cat(ys, dim=1)[:, :S]
-    return _out(p, x, y, xc, z)
+    return _out(p, x, y, xc, z, split)
 
 
-def mamba_decode(p, state, x):
+def mamba_decode(p, state, x, split: bool = False):
     """One-token path. state = (conv_buf (B, K-1, di), h (B, di, N)); x (B, d).
-    Returns (new_state, out)."""
+    Returns (new_state, out).  ``split``: ``p`` and the state hold this
+    rank's channels."""
     conv_buf, h = state
     x1, z = (x @ p["in_proj"]).chunk(2, dim=-1)          # (B, di)
     window = torch.cat([conv_buf, x1[:, None, :]], dim=1)  # (B, K, di)
     xc = torch.einsum("bkd,kd->bd", window, p["conv_w"]) + p["conv_b"]
     xc = F.silu(xc.float()).to(x.dtype)
-    dt = F.softplus((xc @ p["w_dt1"]) @ p["w_dt2"] + p["dt_bias"]).float()
-    B_t = (xc @ p["w_B"]).float()
-    C_t = (xc @ p["w_C"]).float()
+    dt, B_t, C_t = _low_rank(p, xc, split)
     h, y = _cell(p, h, xc.float(), dt, B_t, C_t)
-    return (window[:, 1:], h), _out(p, x, y, xc, z)
+    return (window[:, 1:], h), _out(p, x, y, xc, z, split)
 
 
 def init_mamba_state(batch: int, d_inner: int, N: int, K: int, dtype, device):

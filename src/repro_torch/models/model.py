@@ -15,6 +15,14 @@ under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` remat
 around its scanned group body), so a backward recomputes one group at a
 time, and the card's prefill attention is the flash kernel with the
 streaming recurrence's backward (``layers.FlashAttention``).
+
+Under an active mesh (``models.sharding``) the parameters (and decode
+caches) are DTensors placed by their specs, and every entry point runs as
+this rank's part of the sharded program on its DP rows: the embedding and
+the unembedding split the vocabulary over 'model' (a rank looks up and
+scores its own rows of the table), the blocks run as ``blocks`` describes,
+and the loss is summed over the DP axes.  ``params_specs`` gives the
+parameters as meta tensors, for the dry run.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as Sh
 from repro_torch.models.config import ModelConfig
 
 
@@ -71,7 +80,8 @@ def build(cfg: ModelConfig) -> Model:
 
 
 def tree_map(fn, *trees):
-    """``fn`` over the tensor leaves of nested dicts / tuples / lists."""
+    """``fn`` over the leaves (tensors, ``Sh.Local`` shards) of nested dicts
+    / tuples / lists."""
     t = trees[0]
     if isinstance(t, dict):
         return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
@@ -88,6 +98,10 @@ def _stack_into(out, g: int, n: int, tree):
     return out
 
 
+def _unbind0(t) -> list:
+    return t.unbind0() if isinstance(t, Sh.Local) else t.unbind(0)
+
+
 def group_slice(stacked, g: int):
     """Group ``g`` of stacked leaves, as views."""
     return tree_map(lambda t: t[g], stacked)
@@ -98,7 +112,7 @@ def _unstack(stacked, n: int) -> list:
     whose backward stacks the groups' gradients once (a ``t[g]`` per group
     would add a full-size gradient per group)."""
     parts = []
-    tree_map(lambda t: parts.append(t.unbind(0)), stacked)
+    tree_map(lambda t: parts.append(_unbind0(t)), stacked)
     groups = []
     for g in range(n):
         it = iter([p[g] for p in parts])
@@ -107,6 +121,12 @@ def _unstack(stacked, n: int) -> list:
 
 
 # ----------------------------------------------------------------------- init
+
+
+class _MetaGenerator:
+    """Stands in for a generator on the meta device: ``layers.init_linear``
+    allocates nothing and draws nothing for it."""
+    device = torch.device("meta")
 
 
 def init_params(model: Model, generator: torch.Generator) -> dict:
@@ -141,27 +161,86 @@ def init_params(model: Model, generator: torch.Generator) -> dict:
     return params
 
 
+def params_specs(model: Model) -> dict:
+    """Every parameter as a meta tensor of its shape and dtype (the dry run:
+    no allocation), through ``init_params``'s own code path."""
+    return init_params(model, _MetaGenerator())
+
+
 # ------------------------------------------------------------------- forward
 
 
 def _unembed(params, cfg):
     if cfg.tie_embeddings:
-        return params["embed"].T
+        e = params["embed"]
+        if isinstance(e, Sh.Local):
+            return Sh.Local(e.t.T, {a: None if d is None else 1 - d for a, d in e.dims.items()})
+        return e.T
     return params["unembed"]
 
 
+def _vocab_split(w, dim: int) -> bool:
+    """Whether the vocabulary (dim ``dim`` of the table) splits over 'model'
+    (of more than one rank)."""
+    return Sh.active() and Sh.tp_size() > 1 and Sh.global_dim(w, dim) % Sh.tp_size() == 0
+
+
+def _embed(tokens, table):
+    """The embedding lookup; under a mesh each rank looks up the tokens in
+    its rows of the vocabulary and the ranks' rows are summed (one rank
+    holds each token)."""
+    if not _vocab_split(table, 0):
+        return L.embed(tokens, Sh.use(table))
+    w = Sh.use(table, ("local", 0))
+    lo = Sh.coord(Sh.tp_axis()) * w.shape[0]
+    t = tokens.long() - lo
+    mine = (t >= 0) & (t < w.shape[0])
+    x = L.embed(t.clamp(0, w.shape[0] - 1), w) * mine[..., None].to(w.dtype)
+    return Sh.leave_tp(x)
+
+
+def _ce_loss(h, labels, unembed, chunk):
+    """``layers.chunked_ce_loss``; under a mesh the loss of this rank's rows
+    with the vocabulary split over 'model' (each rank scores its columns;
+    the log-sum-exp and the gold logit are combined over the ranks),
+    divided by the DP-global count of labels and summed over the DP axes."""
+    if not Sh.active():
+        return L.chunked_ce_loss(h, labels, unembed, chunk=chunk)
+    split = _vocab_split(unembed, 1)
+    if not split:
+        tot, cnt = L.chunked_ce_sums(h, labels, Sh.use(unembed), chunk)
+    else:
+        w = Sh.use(unembed, ("local", 1))
+        tp = Sh.tp_axis()
+        lo = Sh.coord(tp) * w.shape[1]
+
+        def scores(logits, ll):
+            m = Sh.all_reduce(logits.detach().amax(dim=-1), tp, torch.distributed.ReduceOp.MAX)
+            logz = m + torch.log(Sh.leave_tp(torch.exp(logits - m[..., None]).sum(dim=-1)))
+            t = ll - lo
+            mine = (t >= 0) & (t < w.shape[1])
+            gold = logits.gather(-1, t.clamp(0, w.shape[1] - 1)[..., None])[..., 0]
+            return logz, Sh.leave_tp(torch.where(mine, gold, 0.0))
+
+        tot, cnt = L.chunked_ce_sums(Sh.enter_tp(h), labels, w, chunk, scores)
+    cnt = Sh.all_reduce(cnt, Sh.dp_axes())
+    return Sh.psum_dp(tot / torch.clamp_min(cnt, 1))
+
+
 def _run_groups_seq(model, gparams, specs, n_groups, x, positions, enc_states, want_cache,
-                    remat=False):
+                    remat=False, dp_split=True):
     """The stacked groups in order.  ``remat`` (with grad mode on): each
     group body runs under ``torch.utils.checkpoint``, which keeps only its
-    inputs and recomputes the body in the backward."""
+    inputs and recomputes the body in the backward.  ``dp_split`` as in
+    ``blocks.layer_seq``."""
     cfg = model.cfg
 
     def body(gp, x):
         aux = 0.0
         group_caches = []
         for s, spec in enumerate(specs):
-            x, cache, a = B.layer_seq(gp[s], x, cfg, spec, positions, enc_states, want_cache)
+            x, cache, a = B.layer_seq(gp[s], x, cfg, spec, positions, enc_states, want_cache,
+                                      dp_split)
             aux = aux + a
             group_caches.append(cache)
         return x, aux, tuple(group_caches)
@@ -179,11 +258,11 @@ def _run_groups_seq(model, gparams, specs, n_groups, x, positions, enc_states, w
     return x, aux, caches if want_cache else 0
 
 
-def _embed_inputs(model: Model, params, batch):
+def _embed_inputs(model: Model, params, batch, dp_split=True):
     """Returns (x (B, S, d), positions (B, S), enc_states)."""
     cfg = model.cfg
     tokens = batch["tokens"]
-    x = L.embed(tokens, params["embed"])
+    x = _embed(tokens, params["embed"])
     Btok, S = tokens.shape
 
     enc_states = None
@@ -196,11 +275,11 @@ def _embed_inputs(model: Model, params, batch):
         positions_enc = torch.arange(frames.shape[1], device=x.device).expand(frames.shape[:2])
         h, _, _ = _run_groups_seq(model, params["encoder"]["groups"], model.enc_group_specs,
                                   model.n_enc_groups, frames, positions_enc, None, False,
-                                  remat=True)
-        enc_states = L.rmsnorm(h, params["encoder"]["final_norm"], cfg.norm_eps)
+                                  remat=True, dp_split=dp_split)
+        enc_states = L.rmsnorm(h, Sh.use(params["encoder"]["final_norm"]), cfg.norm_eps)
 
     positions = torch.arange(S, device=x.device).expand(Btok, S)
-    return x, positions, enc_states
+    return Sh.constrain_act(x), positions, enc_states
 
 
 def forward_train(model: Model, params, batch, ce_chunk: int = 512):
@@ -208,61 +287,83 @@ def forward_train(model: Model, params, batch, ce_chunk: int = 512):
     group bodies run under remat; prefix layers are not wrapped, as in the
     reference."""
     cfg = model.cfg
-    x, positions, enc_states = _embed_inputs(model, params, batch)
+    split = True
+    if Sh.active():
+        params, (batch, split) = Sh.localize(params), Sh.batch_local(batch)
+    x, positions, enc_states = _embed_inputs(model, params, batch, split)
     aux_total = 0.0
     for i, spec in enumerate(model.prefix_specs):
-        x, _, a = B.layer_seq(params["prefix"][i], x, cfg, spec, positions, enc_states)
+        x, _, a = B.layer_seq(params["prefix"][i], x, cfg, spec, positions, enc_states,
+                              dp_split=split)
         aux_total = aux_total + a
     if model.n_groups:
         x, aux, _ = _run_groups_seq(model, params["groups"], model.group_specs, model.n_groups,
-                                    x, positions, enc_states, False, remat=True)
+                                    x, positions, enc_states, False, remat=True, dp_split=split)
         aux_total = aux_total + aux
 
-    h = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    h = L.rmsnorm(x, Sh.use(params["final_norm"]), cfg.norm_eps)
     labels = batch["labels"]
     if cfg.frontend == "vision":
         # image positions carry no next-token loss
         pad = h.shape[1] - labels.shape[1]
         labels = torch.nn.functional.pad(labels, (pad, 0), value=-100)
-    loss = L.chunked_ce_loss(h, labels, _unembed(params, cfg), chunk=ce_chunk)
+    loss = _ce_loss(h, labels, _unembed(params, cfg), ce_chunk)
     return loss + 0.01 * aux_total
 
 
 def _logits(params, cfg, x):
-    h = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return h.float() @ _unembed(params, cfg).float()
+    """fp32 logits (B, V); under a mesh each rank scores its columns of the
+    vocabulary and the columns are gathered over 'model'."""
+    h = L.rmsnorm(x, Sh.use(params["final_norm"]), cfg.norm_eps)
+    w = _unembed(params, cfg)
+    if not _vocab_split(w, 1):
+        return h.float() @ Sh.use(w).float()
+    return Sh.all_gather(h.float() @ Sh.use(w, ("local", 1)).float(), Sh.tp_axis(), 1)
 
 
 def prefill(model: Model, params, batch):
-    """Forward over the full prompt; returns (last_logits (B, V), caches)."""
+    """Forward over the full prompt; returns (last_logits (B, V), caches).
+    Under a mesh: this rank's rows, and a KV cache holds its KV heads."""
     cfg = model.cfg
-    x, positions, enc_states = _embed_inputs(model, params, batch)
+    split = True
+    if Sh.active():
+        params, (batch, split) = Sh.localize(params), Sh.batch_local(batch)
+    x, positions, enc_states = _embed_inputs(model, params, batch, split)
     prefix_caches = []
     for i, spec in enumerate(model.prefix_specs):
         x, cache, _ = B.layer_seq(params["prefix"][i], x, cfg, spec, positions, enc_states,
-                                  want_cache=True)
+                                  want_cache=True, dp_split=split)
         prefix_caches.append(cache)
     group_caches = 0
     if model.n_groups:
         x, _, group_caches = _run_groups_seq(model, params["groups"], model.group_specs,
-                                             model.n_groups, x, positions, enc_states, True)
+                                             model.n_groups, x, positions, enc_states, True,
+                                             dp_split=split)
     caches = {"prefix": tuple(prefix_caches), "groups": group_caches}
     return _logits(params, cfg, x[:, -1, :]), caches
 
 
 def decode_step(model: Model, params, caches, tokens, pos: int):
     """One decode step. tokens (B,) int; pos (int) the write index.  The
-    caches are updated in place; returns (logits (B, V), caches)."""
+    caches are updated in place; returns (logits (B, V), caches).  Under a
+    mesh: this rank's rows (all rows when the batch does not split over the
+    DP axes) and caches placed by ``launch.dryrun.cache_pspecs``."""
     cfg = model.cfg
     pos = int(pos)
-    x = L.embed(tokens, params["embed"])
+    out_caches = caches
+    split = True
+    if Sh.active():
+        params, caches = Sh.localize(params), Sh.localize(caches)
+        tokens, split = Sh.batch_local(tokens)
+    x = _embed(tokens, params["embed"])
     for i, spec in enumerate(model.prefix_specs):
-        x, _ = B.layer_decode(params["prefix"][i], x, cfg, spec, caches["prefix"][i], pos)
+        x, _ = B.layer_decode(params["prefix"][i], x, cfg, spec, caches["prefix"][i], pos,
+                              split)
     for g in range(model.n_groups):
         gp, gc = group_slice(params["groups"], g), group_slice(caches["groups"], g)
         for s, spec in enumerate(model.group_specs):
-            x, _ = B.layer_decode(gp[s], x, cfg, spec, gc[s], pos)
-    return _logits(params, cfg, x), caches
+            x, _ = B.layer_decode(gp[s], x, cfg, spec, gc[s], pos, split)
+    return _logits(params, cfg, x), out_caches
 
 
 # -------------------------------------------------------------------- caches
@@ -308,11 +409,15 @@ def init_decode_caches(model: Model, batch_size: int, cache_len: int, enc_len: i
     return {"prefix": prefix, "groups": groups}
 
 
-def load_prefill_caches(dec, pref):
+def load_prefill_caches(dec, pref, model: Model | None = None):
     """Copy prefill caches into decode caches (in place) and return them: a
     leaf of equal shape is copied whole, a K/V leaf with fewer sequence
     slots fills the first ones; any other leaf (a prompt longer than a
-    rolling window's slots) stays as it is."""
+    rolling window's slots) stays as it is.  Under a mesh (``model``
+    needed): the prefill's KV heads are gathered over 'model' and each rank
+    copies its part of the decode caches' placement."""
+    if Sh.active():
+        return _load_sharded(dec, pref, model.cfg)
     def leaf(dc, pc):
         if not torch.is_tensor(dc):  # no groups: 0 on both sides
             return dc
@@ -324,3 +429,22 @@ def load_prefill_caches(dec, pref):
         return dc
 
     return tree_map(leaf, dec, pref)
+
+
+def _load_sharded(dec, pref, cfg):
+    def leaf(path, dc, pc):
+        if not isinstance(dc, Sh.Local):
+            return
+        off = 1 if "groups" in path else 0
+        if path[-1] in ("k", "v", "ck", "cv"):
+            pc = Sh.kv_full(pc, cfg, off + 1)
+            axes, lo = Sh.seq_split(dc, off + 2)
+            slots = dc.t.shape[off + 2]
+            if pc.shape[off + 2] <= slots * Sh.size(axes):
+                n = max(0, min(pc.shape[off + 2] - lo, slots))
+                dc.t.narrow(off + 2, 0, n).copy_(pc.narrow(off + 2, lo, n))
+        else:  # recurrent states: the reference's zero handoff
+            Sh.state_put(dc, pc, batch_dim=off)
+
+    Sh.tree_map_with_path(leaf, Sh.localize(dec), pref)
+    return dec

@@ -7,6 +7,13 @@ runs the chunked-parallel WKV6 (chunks of 64 steps in dense (c x c) form,
 the per-head (B, H, dk, dv) state carried across chunks) or the per-step
 recurrence, its oracle; decode is one cell step on the carried (shift,
 state).  States and decays are fp32, as in the reference.
+
+``split`` (under a mesh, ``models.sharding``): ``p`` holds this rank's
+heads (``Sharding.rwkv_local``), as the reference's specs split the
+weights over 'model'.  Each input of a split product enters the split
+region (its gradient summed over 'model'), ``ln_x``'s mean square is summed
+over 'model', and the output projections' partial sums are summed over
+'model'; the channel mix's receptance runs replicated.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as Sh
 
 
 def init_rwkv(gen: torch.Generator, d_model: int, d_ff: int, n_heads: int, dtype):
@@ -65,37 +73,58 @@ def _heads(x, H):
     return x.reshape(B, S, H, D // H)
 
 
-def _projections(p, x):
-    prev = _shift(x)
-    r = _mix(x, prev, p["mu_r"]) @ p["w_r"]
-    k = _mix(x, prev, p["mu_k"]) @ p["w_k"]
-    v = _mix(x, prev, p["mu_v"]) @ p["w_v"]
-    g = _mix(x, prev, p["mu_g"]) @ p["w_g"]
+def _projections(p, x, prev, split=False):
+    """r, k, v, g and the decay w of this rank's heads; ``prev`` the
+    token-shifted x."""
+    def proj(mu, w):
+        return Sh.enter_tp(_mix(x, prev, mu), split) @ w
+
+    r = proj(p["mu_r"], p["w_r"])
+    k = proj(p["mu_k"], p["w_k"])
+    v = proj(p["mu_v"], p["w_v"])
+    g = proj(p["mu_g"], p["w_g"])
     xw = _mix(x, prev, p["mu_w"])
-    decay = p["w_decay_base"] + (xw @ p["w_decay_a"]).float() @ p["w_decay_b"].float()
+    decay = p["w_decay_base"] + Sh.enter_tp((xw @ p["w_decay_a"]).float(),
+                                            split) @ p["w_decay_b"].float()
     w = torch.exp(-torch.exp(decay))                     # (B, S, D) in (0,1)
     return r, k, v, g, w
 
 
-def _finish(p, y, g, x_dtype):
-    y = L.rmsnorm(y.to(x_dtype), p["ln_x"])
+def _heads_of(n_heads: int, split: bool) -> int:
+    return n_heads // Sh.tp_size() if split else n_heads
+
+
+def _norm(y, gamma, split):
+    """``layers.rmsnorm`` over the model width: with the heads split, the
+    squares are summed over 'model'."""
+    if not split:
+        return L.rmsnorm(y, gamma)
+    yf = y.float()
+    var = Sh.psum_tp(yf.square().sum(dim=-1, keepdim=True)) / (yf.shape[-1] * Sh.tp_size())
+    return (yf * torch.rsqrt(var + 1e-5) * gamma.float()).to(y.dtype)
+
+
+def _finish(p, y, g, x_dtype, split=False):
+    y = _norm(y.to(x_dtype), p["ln_x"], split)
     y = y * F.silu(g.float()).to(x_dtype)
-    return y @ p["w_o"]
+    return Sh.leave_tp(y @ p["w_o"], split)
 
 
-def time_mix_seq(p, x: torch.Tensor, n_heads: int, chunk: int = 64) -> torch.Tensor:
+def time_mix_seq(p, x: torch.Tensor, n_heads: int, chunk: int = 64,
+                 split: bool = False) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D): the chunked form for S > 1."""
     if chunk and x.shape[1] > 1:
-        return time_mix_seq_chunked(p, x, n_heads, chunk=chunk)
-    return time_mix_seq_recurrent(p, x, n_heads)
+        return time_mix_seq_chunked(p, x, n_heads, chunk=chunk, split=split)
+    return time_mix_seq_recurrent(p, x, n_heads, split)
 
 
-def time_mix_seq_recurrent(p, x: torch.Tensor, n_heads: int) -> torch.Tensor:
+def time_mix_seq_recurrent(p, x: torch.Tensor, n_heads: int, split: bool = False) -> torch.Tensor:
     """Per-step recurrence (the tests' oracle for the chunked form)."""
-    B, S, D = x.shape
-    H = n_heads
+    B, S, _ = x.shape
+    r, k, v, g, w = _projections(p, x, _shift(x), split)
+    D = r.shape[-1]                                        # this rank's heads' width
+    H = _heads_of(n_heads, split)
     dh = D // H
-    r, k, v, g, w = _projections(p, x)
     rh = _heads(r, H).float()
     kh = _heads(k, H).float()
     vh = _heads(v, H).float()
@@ -109,10 +138,11 @@ def time_mix_seq_recurrent(p, x: torch.Tensor, n_heads: int) -> torch.Tensor:
         ys.append(torch.einsum("bhk,bhkv->bhv", rh[:, t], state + u[..., None] * kv))
         state = state * wh[:, t, :, :, None] + kv
     y = torch.stack(ys, dim=1).reshape(B, S, D)
-    return _finish(p, y, g, x.dtype)
+    return _finish(p, y, g, x.dtype, split)
 
 
-def time_mix_seq_chunked(p, x: torch.Tensor, n_heads: int, chunk: int = 64) -> torch.Tensor:
+def time_mix_seq_chunked(p, x: torch.Tensor, n_heads: int, chunk: int = 64,
+                         split: bool = False) -> torch.Tensor:
     """Chunked-parallel WKV6: the recurrence unrolled WITHIN chunks of c
     steps into dense (c x c) matmul form,
 
@@ -121,10 +151,11 @@ def time_mix_seq_chunked(p, x: torch.Tensor, n_heads: int, chunk: int = 64) -> t
         with a_t = cumprod(w), rt~ = r_t (.) a_{t-1}, kt~ = k_s (.) a_s^{-1},
 
     cumulative decays in log space with the reference's +-30 clamp."""
-    B, S, D = x.shape
-    H = n_heads
+    B, S, _ = x.shape
+    r, k, v, g, w = _projections(p, x, _shift(x), split)
+    D = r.shape[-1]
+    H = _heads_of(n_heads, split)
     dh = D // H
-    r, k, v, g, w = _projections(p, x)
     pad = (-S) % chunk
 
     def pad_heads(a, fill=0.0):
@@ -159,15 +190,18 @@ def time_mix_seq_chunked(p, x: torch.Tensor, n_heads: int, chunk: int = 64) -> t
         S0 = a_end[:, :, 0, :, None] * S0 + torch.einsum(
             "bhsd,bhsv->bhdv", kt * decay_to_end, vt)
     y = torch.cat(ys, dim=2)[:, :, :S].transpose(1, 2).reshape(B, S, D)
-    return _finish(p, y, g, x.dtype)
+    return _finish(p, y, g, x.dtype, split)
 
 
-def channel_mix_seq(p, x: torch.Tensor) -> torch.Tensor:
-    prev = _shift(x)
+def _channel_mix(p, x, prev, split):
     r = torch.sigmoid((_mix(x, prev, p["mu_cr"]) @ p["cm_r"]).float()).to(x.dtype)
-    k = _mix(x, prev, p["mu_ck"]) @ p["cm_k"]
+    k = Sh.enter_tp(_mix(x, prev, p["mu_ck"]), split) @ p["cm_k"]
     k = torch.square(F.relu(k.float())).to(x.dtype)
-    return r * (k @ p["cm_v"])
+    return r * Sh.leave_tp(k @ p["cm_v"], split)
+
+
+def channel_mix_seq(p, x: torch.Tensor, split: bool = False) -> torch.Tensor:
+    return _channel_mix(p, x, _shift(x), split)
 
 
 # --------------------------------------------------------------------- decode
@@ -182,38 +216,23 @@ def init_rwkv_state(batch: int, d_model: int, n_heads: int, device):
     )
 
 
-def time_mix_decode(p, tshift, wkv, x, n_heads: int):
+def time_mix_decode(p, tshift, wkv, x, n_heads: int, split: bool = False):
     """One-token time mix. tshift (B, D) f32, wkv (B, H, dh, dh) f32, x (B, D).
-    Returns (new_tshift, new_wkv, out)."""
-    B, D = x.shape
-    H = n_heads
-    dh = D // H
-    prev = tshift.to(x.dtype)
-
-    def mix(mu):
-        return x + (prev - x) * mu.to(x.dtype)
-
-    r = (mix(p["mu_r"]) @ p["w_r"]).reshape(B, H, dh).float()
-    k = (mix(p["mu_k"]) @ p["w_k"]).reshape(B, H, dh).float()
-    v = (mix(p["mu_v"]) @ p["w_v"]).reshape(B, H, dh).float()
-    g = mix(p["mu_g"]) @ p["w_g"]
-    decay = p["w_decay_base"] + (mix(p["mu_w"]) @ p["w_decay_a"]).float() @ p["w_decay_b"].float()
-    w = torch.exp(-torch.exp(decay)).reshape(B, H, dh)
+    Returns (new_tshift, new_wkv, out).  ``split``: ``p`` and ``wkv`` hold
+    this rank's heads."""
+    B = x.shape[0]
+    H = _heads_of(n_heads, split)
+    r, k, v, g, w = _projections(p, x, tshift.to(x.dtype), split)
+    r, k, v, w = (a.reshape(B, H, -1).float() for a in (r, k, v, w))
     u = p["u_bonus"][None]
 
     kv = k[..., :, None] * v[..., None, :]
     y = torch.einsum("bhk,bhkv->bhv", r, wkv + u[..., None] * kv)
     wkv = wkv * w[..., None] + kv
-    y = L.rmsnorm(y.reshape(B, D).to(x.dtype), p["ln_x"])
-    y = y * F.silu(g.float()).to(x.dtype)
-    return x.float(), wkv, y @ p["w_o"]
+    return x.float(), wkv, _finish(p, y.reshape(B, -1), g, x.dtype, split)
 
 
-def channel_mix_decode(p, cshift, x):
+def channel_mix_decode(p, cshift, x, split: bool = False):
     """One-token channel mix. cshift (B, D) f32, x (B, D).
     Returns (new_cshift, out)."""
-    prev = cshift.to(x.dtype)
-    rc = torch.sigmoid(((x + (prev - x) * p["mu_cr"].to(x.dtype)) @ p["cm_r"]).float()).to(x.dtype)
-    kc = (x + (prev - x) * p["mu_ck"].to(x.dtype)) @ p["cm_k"]
-    kc = torch.square(F.relu(kc.float())).to(x.dtype)
-    return x.float(), rc * (kc @ p["cm_v"])
+    return x.float(), _channel_mix(p, x, cshift.to(x.dtype), split)

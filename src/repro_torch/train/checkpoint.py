@@ -11,9 +11,13 @@ uint16 bits with dtype ``"bfloat16"`` in the manifest, and the files are
 written as the reference writes them, so a checkpoint written by either
 package restores in the other.  Writes go to a temp dir + atomic rename so
 a killed process never leaves a half-written checkpoint (launch/elastic.py
-kills mid-run to prove it).  Restore loads host-side and places every leaf
-on one device; elastic placement over a mesh (the reference's
-``shardings``) waits for the port's mesh slice.
+kills mid-run to prove it).
+
+Under a mesh the state's leaves are DTensors: saving gathers each sharded
+leaf to one full array (every rank takes part, rank 0 writes).  Restore is
+*elastic*: arrays are loaded host-side and placed with ``shardings``, the
+placements of the CURRENT mesh, which may differ from the mesh that saved
+them; without ``shardings`` every leaf lands whole on ``device``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.models import sharding as Sh
 from repro_torch.train import optimizer as Opt
 
 
@@ -49,10 +55,30 @@ def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
 
 
 def save(ckpt_dir: str, step: int, state: dict) -> str:
+    """Write ``state`` as step ``step``; DTensor leaves are gathered whole
+    first, and with a process group up only rank 0 writes (the others wait
+    for it)."""
+    from torch.distributed.tensor import DTensor
+
+    paths = _paths(state)
+    sharded = any(isinstance(v, DTensor) for _, v in paths)
+    paths = [(k, v.full_tensor() if isinstance(v, DTensor) else v) for k, v in paths]
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if sharded and dist.get_rank() != 0:
+        dist.barrier()
+        return final
+    try:
+        return _write(ckpt_dir, step, paths, final)
+    finally:
+        if sharded:
+            dist.barrier()
+
+
+def _write(ckpt_dir: str, step: int, paths, final: str) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     arrays = {}
     dtypes = {}
-    for k, v in _paths(state):
+    for k, v in paths:
         arrays[k], dtypes[k] = _to_numpy(v)
     manifest = {
         "step": step,
@@ -60,7 +86,6 @@ def save(ckpt_dir: str, step: int, state: dict) -> str:
             k: {"shape": list(a.shape), "dtype": dtypes[k]} for k, a in arrays.items()
         },
     }
-    final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
@@ -93,10 +118,13 @@ def latest_step(ckpt_dir: str) -> int | None:
         return json.load(f)["step"]
 
 
-def restore(ckpt_dir: str, like: dict, device: str | torch.device = "cpu") -> tuple[dict, int]:
+def restore(ckpt_dir: str, like: dict, device: str | torch.device = "cpu",
+            shardings=None, mesh=None) -> tuple[dict, int]:
     """Restore into the structure of ``like`` (a tree of anything with a
     ``shape``: tensors, arrays), every leaf a tensor on ``device`` in the
-    dtype it was saved with."""
+    dtype it was saved with.  ``shardings``: a matching tree of DTensor
+    placements on ``mesh`` (the active mesh by default): each leaf becomes a
+    DTensor of those placements, every rank keeping its own slice."""
     step = latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
@@ -115,4 +143,7 @@ def restore(ckpt_dir: str, like: dict, device: str | torch.device = "cpu") -> tu
             if bf16:
                 t = t.view(torch.bfloat16)
             leaves.append(t.to(device))
-    return Opt.tree_unflatten(like, leaves), step
+    tree = Opt.tree_unflatten(like, leaves)
+    if shardings is not None:
+        tree = Sh.place(tree, mesh if mesh is not None else Sh.active_mesh(), shardings)
+    return tree, step

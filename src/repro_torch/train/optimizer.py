@@ -110,8 +110,10 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree, max_norm):
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm, norm=None):
+    """``norm``: the tree's global norm when the caller has it (a sharded
+    tree's, summed over its ranks)."""
+    norm = global_norm(tree) if norm is None else norm
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
     clipped = [(x.float() * scale).to(x.dtype) for x in tree_leaves(tree)]
     return tree_unflatten(tree, clipped), norm
@@ -139,12 +141,14 @@ def adamw_init(params):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: OptConfig):
+def adamw_update(params, grads, state, cfg: OptConfig, gnorm=None):
+    """``gnorm``: the gradients' global norm when the leaves are one rank's
+    shards (the sharded step computes it over the ranks)."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.betas
     c1, c2 = _bias_corrections(b1, b2, step)
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, gnorm)
 
     def upd(p, g, m, v):
         g = g.float()
@@ -235,12 +239,12 @@ def adamw8_init(params):
 
 
 @torch.no_grad()
-def adamw8_update(params, grads, state, cfg: OptConfig):
+def adamw8_update(params, grads, state, cfg: OptConfig, gnorm=None):
     step = state["step"] + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.betas
     c1, c2 = _bias_corrections(b1, b2, step)
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, gnorm)
 
     def upd(p, g, mq, vq):
         g = g.float()

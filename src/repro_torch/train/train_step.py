@@ -11,16 +11,28 @@ activation peak at 1/k of the full batch), summing in fp32 as the
 reference's scan does, and an optional int8 gradient compression hook
 quantizes gradients before the optimizer.
 
-The reference's ``grad_pspecs`` and ``batch_shardings`` (sharding
-constraints on the gradient accumulator and the microbatched batch) wait
-for the port's mesh slice: without a mesh there is nothing to constrain.
+Under an active mesh (``models.sharding``) the parameters, the AdamW
+moments and the batch are DTensors and the step is this rank's part of the
+sharded program.  Microbatch i is rows i*mb .. (i+1)*mb of the global
+batch, as the reference's static reshape cuts it, placed by
+``batch_shardings(ndim)`` (default: the batch's own placements) so every DP
+shard holds its share of each microbatch: the rows move by one all-to-all
+over the DP ranks a step (``Sharding.microbatch_parts``), where GSPMD
+reshards the reshaped batch.  A MoE's capacity groups are therefore the
+reference's.
+The gradients and the fp32 accumulator carry the params' placements
+(``to_local``'s backward gives them); ``grad_pspecs``, where given, is
+checked against them.  The optimizer runs on each rank's shards with the
+global gradient norm summed over the ranks.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import model as Mod
+from repro_torch.models import sharding as Sh
 from repro_torch.train import optimizer as Opt
 
 
@@ -42,6 +54,8 @@ def make_train_step(
     microbatches: int = 1,
     ce_chunk: int = 512,
     compress_grads: bool = False,
+    grad_pspecs=None,      # placements tree matching params: checked (under a mesh)
+    batch_shardings=None,  # ndim -> placements of one microbatch leaf
 ):
     opt_cfg = opt_cfg or Opt.OptConfig()
     _, opt_update = Opt.OPTIMIZERS[opt_name]
@@ -56,9 +70,35 @@ def make_train_step(
                                      ce_chunk=ce_chunk)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+        if grad_pspecs is not None:
+            for g, pl in zip(grads, Opt.leaves_up_to(params, grad_pspecs)):
+                if tuple(g.placements) != tuple(pl):
+                    raise ValueError(f"a gradient placed {tuple(g.placements)}, "
+                                     f"not like its parameter's spec {tuple(pl)}")
         return loss.detach(), grads
 
+    def _zeros_f32(p):
+        """The fp32 accumulator of ``p``'s gradient, placed like ``p``."""
+        if isinstance(p, DTensor):
+            return Sh.wrap_like(torch.zeros(p.to_local().shape, dtype=torch.float32,
+                                            device=p.device), p)
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    def _microbatches(v, mb: int) -> list:
+        """Rows i*mb .. (i+1)*mb of the batch leaf ``v``, i < microbatches; of
+        a DTensor leaf this rank's share of them under ``batch_shardings``."""
+        if not isinstance(v, DTensor):
+            return list(v.split(mb))
+        placements = batch_shardings(v.dim()) if batch_shardings is not None else v.placements
+        parts = Sh.microbatch_parts(v.to_local(), any(pl.is_shard() for pl in v.placements),
+                                    any(pl.is_shard() for pl in placements), microbatches)
+        return [DTensor.from_local(part, v.device_mesh, placements, run_check=False,
+                                   shape=(mb,) + tuple(v.shape[1:]), stride=part.stride())
+                for part in parts]
+
     def train_step(params, opt_state, batch):
+        if Sh.active() and opt_name != "adamw":
+            raise ValueError("the sharded step runs AdamW (its moments mirror the params)")
         if microbatches == 1:
             loss, grads = value_and_grad(params, batch)
         else:
@@ -67,11 +107,10 @@ def make_train_step(
                 raise ValueError(f"a batch of {B} does not split into {microbatches} microbatches")
             mb = B // microbatches
             loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for p in Opt.tree_leaves(params)]
+            grads = [_zeros_f32(p) for p in Opt.tree_leaves(params)]
+            parts = {k: _microbatches(v, mb) for k, v in batch.items()}
             for i in range(microbatches):
-                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                l, g = value_and_grad(params, part)
+                l, g = value_and_grad(params, {k: v[i] for k, v in parts.items()})
                 grads = [a + b.float() for a, b in zip(grads, g)]
                 loss = loss + l
             loss = loss / microbatches
@@ -81,11 +120,32 @@ def make_train_step(
         with torch.profiler.record_function("train_step.optimizer"):
             if compress_grads:
                 grads = _compress_grads_int8(grads)
-            params, opt_state, om = opt_update(params, grads, opt_state, opt_cfg)
+            if Sh.active():
+                params, opt_state, om = _sharded_update(opt_update, params, grads, opt_state,
+                                                        opt_cfg)
+            else:
+                params, opt_state, om = opt_update(params, grads, opt_state, opt_cfg)
         metrics = {"loss": loss, **om}
         return params, opt_state, metrics
 
     return train_step
+
+
+def _sharded_update(opt_update, params, grads, opt_state, opt_cfg):
+    """The optimizer on this rank's shards (DTensor leaves -> their local
+    tensors and back, with the same placements), the gradient norm summed
+    over the ranks."""
+    def local(tree):
+        return Mod.tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t, tree)
+
+    gnorm = torch.sqrt(Sh.global_sq_sum(Opt.tree_leaves(grads)))
+    new_p, new_s, om = opt_update(local(params), local(grads), local(opt_state), opt_cfg,
+                                  gnorm=gnorm)
+
+    def wrap(new, like):
+        return Sh.wrap_like(new, like) if isinstance(like, DTensor) else new
+
+    return Mod.tree_map(wrap, new_p, params), Mod.tree_map(wrap, new_s, opt_state), om
 
 
 def make_init(model: Mod.Model, opt_name: str = "adamw"):
