@@ -2,6 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port of VeloANN, its KV serving plane and its LM stack.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
+    python3 chip_smoke.py --example quickstart_torch   # one twin, as phase 13 runs it
 
 Phases (each one that fails ends the run with a non-zero exit):
   1. device   require CUDA, print the card's name and power limit, turn TF32 off
@@ -61,7 +62,7 @@ Phases (each one that fails ends the run with a non-zero exit):
               verify_protocol on must equal their unverified runs with no
               violation; the schedule explorer at the JAX package's fixture
               (five algorithms + the pure-EDF plane, 5 schedules) and at
-              full width (velo, 50 queries, seeds 0-3, unfused and fused)
+              full width (velo, 50 queries, seeds 0-1, unfused and fused)
               must be schedule-invariant with ties permuted, and reports
               the calls on binary_ip's tensor-core path;
               ``repro_torch.launch.serve`` at 2 000 x 128 must reach
@@ -77,33 +78,50 @@ Phases (each one that fails ends the run with a non-zero exit):
               decode-continues-prefill, prefill / decode / retrieval times,
               flash's share of the prefill's device time, peak memory
  11. lm train the port's training path (train/*, launch/train): the reduced
-              TinyLlama, 5 AdamW steps on the card against the port on the
-              CPU on the same weights and batches (fp32 and bf16: losses
-              within TRAIN_LOSS_TOL, parameters within Adam's worst case and
-              the bulk within the stated bars), then TinyLlama-1.1B at full
-              width in bf16, 10 AdamW steps of 4 x 2 048 tokens: 44
-              flash_attention launches a step (forward and remat recompute
-              of 22 layers; the first step's each held against
-              attention_ref), a falling finite loss, step ms and tokens/s,
-              peak memory, a profiled step's device split (GEMMs, flash, the
-              plain attention backward, the optimizer); then the training
-              CLI resumed after an injected failure (exit 42) against an
-              uninterrupted run
+              TinyLlama, 5 steps on the card against the port on the CPU on
+              the same weights and batches, for AdamW, adamw8 and AdamW with
+              the int8 gradient compression (fp32 and bf16: losses within
+              TRAIN_LOSS_TOL, parameters within Adam's worst case and the
+              bulk within the stated bars); adamw8 on the card beside the
+              CPU's update fed the card's gradients (codes equal but for
+              0.1 % off by one, CODE_BAR; the gradients' distance and the
+              codes it moves reported); adamw8's update and the compression
+              on one seeded gradient, card against CPU (adamw8's codes to
+              CODE_BAR, the compression bitwise); then
+              TinyLlama-1.1B at full width in bf16, 10 AdamW steps and 3
+              adamw8 steps of 4 x 2 048 tokens: 44 flash_attention launches
+              a step (forward and remat recompute of 22 layers; the first
+              step's each held against attention_ref), a falling finite
+              loss, step ms and tokens/s, peak memory, a profiled step's
+              device split (GEMMs, flash, the plain attention backward, the
+              optimizer and its share); then the training CLI resumed after
+              an injected failure (exit 42) against an uninterrupted run
  12. lm shard the mesh (models.sharding, launch.mesh) in a one-rank NCCL group
               on the card, (data 1, model 1): Yi-6B at full width served
               with params placed by param_pspecs and caches by cache_pspecs
               (tokens equal to phase 10's, 32 flash launches a prefill);
-              TinyLlama-1.1B at full width, 3 AdamW steps of 2 microbatches
-              through the sharded step (grad_pspecs, batch_shardings)
-              against the unsharded step (44 flash launches a microbatch;
-              losses and parameters bitwise, else phase 11's bars); one
-              dbrx-132b MoE layer at full width (16 experts top-4, 4 096
-              tokens) through moe_ffn_ep against moe_ffn (equal); the dry
-              run's prediction for phase 11's batch at the 1 x 1 mesh beside
-              phase 11's measured peak, step time and MFU, and the
-              reference's test cell (rwkv6-7b long_500k pod1) on 256 fake
-              ranks in a child process
- 13. report   one JSON line of per-kernel numbers, then the card line and the
+              TinyLlama-1.1B at full width, 3 steps of 2 microbatches
+              through the sharded step (grad_pspecs, batch_shardings, the
+              state placed by opt_state_placements) against the unsharded
+              step, for AdamW, adamw8 and AdamW with the int8 gradient
+              compression (44 flash launches a microbatch; losses and
+              parameters bitwise, else phase 11's bars); one dbrx-132b MoE
+              layer at full width (16 experts top-4, 4 096 tokens) through
+              moe_ffn_ep against moe_ffn (equal); the dry run's prediction
+              for phase 11's batch at the 1 x 1 mesh beside phase 11's
+              measured peak, step time and MFU, and the reference's test
+              cell (rwkv6-7b long_500k pod1) on 256 fake ranks in a child
+              process
+ 13. examples the torch twins of examples/{quickstart,serve_batch,
+              distributed_search}.py, each its own process on the card
+              (``chip_smoke.py --example NAME``; the last one's process
+              group a one-rank NCCL group): each must exit 0 and print OK,
+              launch its kernels (binary_ip and int4_dist; the scan
+              binary_ip), counted from 0 around its main path, and the
+              first calls of each kernel entry, kept, must agree with the
+              plain versions at the twin's own d=64 shapes; recall, launches
+              and wall seconds
+ 14. report   one JSON line of per-kernel numbers, then the card line and the
               final {"ok": true, ...} line
 
 Imports torch, numpy and the port (src/repro_torch) only.
@@ -223,15 +241,17 @@ LM_FLASH_SHAPE = "yi-6b lm serve prefill B=4 S=2048"
 TRAIN_FLASH_SHAPE = "tinyllama-1.1b lm train B=4 S=2048"
 TINYLLAMA = dict(H=32, KVH=4, Dh=64)  # src/repro/configs/tinyllama_1_1b.py
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 10
+ADAMW8_STEPS = 3  # the full-width adamw8 run's steps
 KERNELS = {
     "binary_ip": dict(source="src/repro_torch/csrc/binary_ip.cu",
                       replaces="src/repro/kernels/binary_ip/kernel.py:28",
                       counter=bip_kernel,
-                      paths=("search", "serving plane", "velo device", "verify"),
+                      paths=("search", "serving plane", "velo device", "verify", "examples"),
                       main=dict(SIFT1M_FLUSH, entry="estimate_dist2")),
     "int4_dist": dict(source="src/repro_torch/csrc/int4_dist.cu",
                       replaces="src/repro/kernels/int4_dist/kernel.py:27",
-                      counter=i4_kernel, paths=("search", "serving plane", "verify"),
+                      counter=i4_kernel,
+                      paths=("search", "serving plane", "verify", "examples"),
                       main=SIFT1M_FLUSH),
     # a decode step of 8 sequences x 2048 tokens, bf16 pages
     "paged_attention": dict(source="src/repro_torch/csrc/paged_attention.cu",
@@ -1257,6 +1277,9 @@ def phase_kv_serve(dev, card: str, n_pages: int, thrash: bool) -> dict:
 REF_TIES = {"velo": (122, 2940, 0), "diskann": (48, 42, 0), "starling": (42, 36, 0),
             "pipeann": (558, 936, 0), "inmemory": (6, 0, 0), "sla-edf": (156, 2866, 1127)}
 VERIFY_FULL_QUERIES = 50  # the full-width explorer leg's queries
+# its permuted schedules beside seed 0's: one (it ran seeds 1-3 before the
+# examples' phase came, which takes the ~20 s of the two others)
+VERIFY_FULL_SEEDS = (1,)
 
 
 def _tie_sums(reports) -> tuple[int, int, int]:
@@ -1370,7 +1393,7 @@ def phase_verify(ds, graph, qb, card: str) -> dict:
         name = f"explore full width fuse={fuse}"
         distance.estimate_dist2 = recorded
         try:
-            reps = step(name, lambda: explore.explore(run_under, [1, 2, 3]))
+            reps = step(name, lambda: explore.explore(run_under, VERIFY_FULL_SEEDS))
         finally:
             distance.estimate_dist2 = estimate
         leg = dict(queries=VERIFY_FULL_QUERIES, fuse=fuse, seeds=[r.seed for r in reps],
@@ -1629,9 +1652,20 @@ def phase_lm_serve(dev, ds, graph, qb, card: str) -> dict:
 
 
 # the reduced TinyLlama trained on the card and by the port on the CPU from
-# the same weights: 5 AdamW steps of 4 x 64 tokens; losses by dtype (fp32:
+# the same weights: 5 steps of 4 x 64 tokens (AdamW, adamw8, AdamW with the
+# int8 gradient compression); losses by dtype (fp32:
 # the sums' order; bf16: phase 10's bar)
 TRAIN_REDUCED = dict(B=4, S=64, steps=5, lr=1e-3)
+OPT_STEPS = 3  # adamw8 updates on one gradient a step, card against the CPU
+# adamw8's codes from the same gradients on two devices: equal but for at
+# most 0.1 % off by one (tests/test_torch_train.py's bar)
+CODE_BAR = dict(worst=1, share=1e-3)
+# the share of parameters that the trained reduced adamw8 run may leave off
+# the bulk bar, card against the CPU, in either dtype: the readings were
+# 0.72 % (fp32) and 0.24 % (bf16), the same bits in every whole run on an
+# H100 80GB HBM3 (PERF.md); the spread is the gradients' (see
+# _adamw8_same_gradients)
+ADAMW8_BULK = 1e-2
 TRAIN_LOSS_TOL = {torch.float32: dict(rtol=1e-4, atol=0.0),
                   torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 BF16_ULP = 2.0 ** -7  # the spacing of bf16 values relative to their magnitude
@@ -1659,9 +1693,11 @@ def _flash_per_step(cfg) -> int:
     return 2 * sum(1 for i in range(cfg.n_layers) if cfg.layer_kind(i) == "attn")
 
 
-def _reduced_train_card_vs_cpu(dev, dtype) -> dict:
-    """The reduced TinyLlama, 5 AdamW steps on the card and by the port on
-    the CPU from the same seeded weights and ``batch_for_step`` batches.
+def _reduced_train_card_vs_cpu(dev, dtype, opt_name: str = "adamw",
+                               compress: bool = False) -> dict:
+    """The reduced TinyLlama, 5 steps of ``opt_name`` (``compress``: with the
+    int8 gradient compression) on the card and by the port on the CPU from
+    the same seeded weights and ``batch_for_step`` batches.
     Losses within TRAIN_LOSS_TOL.  Parameters: Adam moves an entry by about
     lr a step whatever |g|, so a gradient that nearly cancels can step the
     other way on one device, and no bar tighter than Adam's own worst case
@@ -1671,14 +1707,21 @@ def _reduced_train_card_vs_cpu(dev, dtype) -> dict:
     updates must agree: fp32, all but 0.1 % of the entries within 1e-3 of
     sum_t lr_t (the total step); bf16, all but 1 % within 0.1 of it plus
     two ulps of the entry (an update of ~lr is one to ten ulps of these
-    weights, so a last-bit difference in it can round the other way)."""
+    weights, so a last-bit difference in it can round the other way).
+    adamw8 turns the devices' last-bit gradient differences into code
+    flips, and a flipped code moves its entry's update by up to a code's
+    width (``_adamw8_same_gradients`` shows it: fed the card's gradients,
+    the CPU's update meets CODE_BAR and AdamW's bulk bar).  So
+    adamw8's bulk is held to ADAMW8_BULK, set from the readings of two
+    whole runs, and its trained codes are reported (``codes_off``)."""
     R = TRAIN_REDUCED
     cfg = dataclasses.replace(lm_configs.get("tinyllama-1.1b", reduced=True),
                               dtype=str(dtype)[6:])
     model = lm_model.build(cfg)
     opt_cfg = train_opt.OptConfig(lr=R["lr"], total_steps=R["steps"], warmup_steps=1)
-    step_fn = train_step.make_train_step(model, "adamw", opt_cfg, ce_chunk=32)
-    cpu_p, cpu_o = train_step.make_init(model, "adamw")(torch.Generator().manual_seed(0))
+    step_fn = train_step.make_train_step(model, opt_name, opt_cfg, ce_chunk=32,
+                                         compress_grads=compress)
+    cpu_p, cpu_o = train_step.make_init(model, opt_name)(torch.Generator().manual_seed(0))
     card_p, card_o = lm_model.tree_map(lambda t: t.to(dev), (cpu_p, cpu_o))
     tol = TRAIN_LOSS_TOL[dtype]
     cpu_l, card_l = [], []
@@ -1693,34 +1736,152 @@ def _reduced_train_card_vs_cpu(dev, dtype) -> dict:
            for t in range(1, R["steps"] + 1)]
     b1, b2 = opt_cfg.betas
     worst = 2 * sum(lr * adam_ratio_bound(b1, b2, t) for t, lr in enumerate(lrs, 1))
-    over, n_all, off, max_err = 0, 0, 0, 0.0
+    over, n_all, max_err = 0, 0, 0.0
     for a, b in zip(train_opt.tree_leaves(card_p), train_opt.tree_leaves(cpu_p)):
         a, b = a.float().cpu(), b.float()
         d = (a - b).abs()
         max_err = max(max_err, float(d.max()))
         if dtype == torch.float32:
             bound = worst + 1e-6 * b.abs().max()
-            off += int((d > 1e-3 * sum(lrs) + 1e-6 * b.abs()).sum())
         else:
             bound = worst + R["steps"] * BF16_ULP * torch.maximum(a.abs(), b.abs())
-            off += int((d > 0.1 * sum(lrs) + 2 * BF16_ULP * b.abs()).sum())
         over += int((d > bound).sum())
         n_all += d.numel()
+    off = _bulk_off(card_p, cpu_p, lrs, dtype)
     loss_close = all(np.isclose(c, g, **tol) for c, g in zip(card_l, cpu_l))
-    r = dict(dtype=str(dtype)[6:], steps=R["steps"], cpu_losses=cpu_l, card_losses=card_l,
+    r = dict(dtype=str(dtype)[6:], opt=opt_name, compress_grads=compress, steps=R["steps"],
+             cpu_losses=cpu_l, card_losses=card_l,
              loss_max_rel_err=max(abs(c - g) / abs(g) for c, g in zip(card_l, cpu_l)),
              params_max_abs_err=max_err, adam_worst_case=worst, entries_over_worst_case=over,
              entries_off_bulk=off, entries=n_all, off_share=off / n_all, flash_launches=launched)
-    print("lm train: reduced:", json.dumps(r))
+    if opt_name == "adamw8":
+        r["codes_off"] = {k: _codes_off(card_o[k], cpu_o[k]) for k in "mv"}
+    tag = f"lm train: reduced ({r['dtype']}, {opt_name}{', compressed' if compress else ''})"
+    print(tag + ":", json.dumps(r))
     per_step = _flash_per_step(cfg)
-    require(launched == per_step * R["steps"], f"lm train: reduced ({r['dtype']}) launched "
-            f"flash_attention {launched} times, not {per_step} a step")
-    require(loss_close, f"lm train: reduced ({r['dtype']}) card losses {card_l} against the "
-            f"CPU's {cpu_l} (bar {tol})")
-    require(over == 0, f"lm train: reduced ({r['dtype']}): {over} parameters beyond Adam's "
-            f"worst case {worst:.3e}")
+    require(launched == per_step * R["steps"], f"{tag} launched flash_attention {launched} "
+            f"times, not {per_step} a step")
+    require(loss_close, f"{tag}: card losses {card_l} against the CPU's {cpu_l} (bar {tol})")
+    require(over == 0, f"{tag}: {over} parameters beyond Adam's worst case {worst:.3e}")
+    bulk = ADAMW8_BULK if opt_name == "adamw8" else (1e-3 if dtype == torch.float32 else 1e-2)
+    require(r["off_share"] <= bulk, f"{tag}: {off} of {n_all} parameters off the CPU's")
+    return r
+
+
+def _bulk_off(got, want, lrs: list, dtype) -> int:
+    """Parameters of two trees farther apart than the bulk bar of
+    ``_reduced_train_card_vs_cpu`` after the steps of ``lrs``."""
+    off = 0
+    for a, b in zip(train_opt.tree_leaves(got), train_opt.tree_leaves(want)):
+        a, b = a.float().cpu(), b.float().cpu()
+        if dtype == torch.float32:
+            off += int(((a - b).abs() > 1e-3 * sum(lrs) + 1e-6 * b.abs()).sum())
+        else:
+            off += int(((a - b).abs() > 0.1 * sum(lrs) + 2 * BF16_ULP * b.abs()).sum())
+    return off
+
+
+def _adamw8_same_gradients(dev, dtype) -> dict:
+    """Where the trained adamw8 run's spread comes from.  The reduced
+    TinyLlama's run of ``_reduced_train_card_vs_cpu`` on the card, as the
+    step's two halves (``loss_and_grads``, then ``adamw8_update``), beside
+    the CPU's ``adamw8_update`` fed the card's gradients every step from the
+    same start: the two differ only by the update's arithmetic, and are held
+    to CODE_BAR and AdamW's bulk bar (fp32 0.1 %, bf16 1 %).  Each step also
+    reports the gradients' distance, the card's against the CPU's at the card's parameters, and
+    the codes which that difference alone moves: the CPU's update from the
+    card's state with either gradient."""
+    R = TRAIN_REDUCED
+    cfg = dataclasses.replace(lm_configs.get("tinyllama-1.1b", reduced=True),
+                              dtype=str(dtype)[6:])
+    model = lm_model.build(cfg)
+    opt_cfg = train_opt.OptConfig(lr=R["lr"], total_steps=R["steps"], warmup_steps=1)
+    fed_p, fed_s = train_step.make_init(model, "adamw8")(torch.Generator().manual_seed(0))
+    card_p, card_s = lm_model.tree_map(lambda t: t.to(dev), (fed_p, fed_s))
+    steps = []
+    for batch in _train_batches(cfg, R["B"], R["S"], R["steps"]):
+        _, g = train_step.loss_and_grads(model, card_p, {k: v.to(dev) for k, v in batch.items()},
+                                         ce_chunk=32)
+        g = [t.cpu() for t in g]
+        at_p, at_s = lm_model.tree_map(lambda t: t.cpu(), (card_p, card_s))
+        _, g_cpu = train_step.loss_and_grads(model, at_p, batch, ce_chunk=32)
+        _, with_card, _ = train_opt.adamw8_update(at_p, train_opt.tree_unflatten(at_p, g),
+                                                  at_s, opt_cfg)
+        _, with_cpu, _ = train_opt.adamw8_update(at_p, train_opt.tree_unflatten(at_p, g_cpu),
+                                                 at_s, opt_cfg)
+        card_p, card_s, _ = train_opt.adamw8_update(
+            card_p, train_opt.tree_unflatten(card_p, [t.to(dev) for t in g]), card_s, opt_cfg)
+        fed_p, fed_s, _ = train_opt.adamw8_update(fed_p, train_opt.tree_unflatten(fed_p, g),
+                                                  fed_s, opt_cfg)
+        diff = sum(float((a.double() - b.double()).square().sum()) for a, b in zip(g, g_cpu))
+        norm = sum(float(b.double().square().sum()) for b in g_cpu)
+        steps.append(dict(grad_rel_dist=(diff / norm) ** 0.5,
+                          codes_moved_by_grads={k: _codes_off(with_card[k], with_cpu[k])
+                                                for k in "mv"}))
+    lrs = [float(train_opt.schedule(opt_cfg, torch.tensor(t, dtype=torch.int32)))
+           for t in range(1, R["steps"] + 1)]
+    n_all = sum(t.numel() for t in train_opt.tree_leaves(fed_p))
+    r = dict(dtype=str(dtype)[6:], steps=steps,
+             codes_off={k: _codes_off(card_s[k], fed_s[k]) for k in "mv"},
+             off_share=_bulk_off(card_p, fed_p, lrs, dtype) / n_all)
+    print(f"lm train: reduced ({r['dtype']}, adamw8) fed the card's gradients:", json.dumps(r))
+    require(all(c["worst"] <= CODE_BAR["worst"] and c["share"] <= CODE_BAR["share"]
+                for c in r["codes_off"].values()),
+            f"lm train: adamw8 on the card off the CPU's fed the same gradients: {r}")
     require(r["off_share"] <= (1e-3 if dtype == torch.float32 else 1e-2),
-            f"lm train: reduced ({r['dtype']}): {off} of {n_all} parameters off the CPU's")
+            f"lm train: adamw8's parameters on the card off the CPU's fed the same gradients: {r}")
+    return r
+
+
+def _codes_off(got, want) -> dict:
+    """adamw8 state trees (either device): the largest difference of their
+    int8 codes and the share of codes that differ."""
+    pairs = [(a.cpu().int(), b.cpu().int()) for a, b in zip(train_opt.tree_leaves(got),
+                                                            train_opt.tree_leaves(want))
+             if a.dtype == torch.int8]
+    return dict(worst=max(int((a - b).abs().max()) for a, b in pairs),
+                share=sum(int((a != b).sum()) for a, b in pairs) / sum(a.numel() for a, _ in pairs))
+
+
+def _opt_one_gradient(dev, dtype) -> dict:
+    """adamw8's update and the int8 gradient compression on the card against
+    the CPU on one gradient: the reduced TinyLlama's seeded weights and
+    OPT_STEPS seeded gradients (N(0, 1e-2), the weights' dtype), no
+    clipping.  adamw8's state: codes to CODE_BAR (the card's exp and log
+    may round a last bit apart).  The compression (``Opt._q8`` of each
+    gradient: a max, a true division and a rounding): codes and scales
+    bitwise the CPU's."""
+    cfg = dataclasses.replace(lm_configs.get("tinyllama-1.1b", reduced=True),
+                              dtype=str(dtype)[6:])
+    params, state = train_step.make_init(lm_model.build(cfg), "adamw8")(
+        torch.Generator().manual_seed(0))
+    opt_cfg = train_opt.OptConfig(lr=TRAIN_REDUCED["lr"], total_steps=OPT_STEPS,
+                                  warmup_steps=1, grad_clip=1e9)
+    gen = torch.Generator().manual_seed(4)
+    card_p, card_s = lm_model.tree_map(lambda t: t.to(dev), (params, state))
+    compressed = {"card": [], "cpu": []}
+    for _ in range(OPT_STEPS):
+        grads = lm_model.tree_map(lambda t: (1e-2 * torch.randn(t.shape, generator=gen))
+                                  .to(t.dtype), params)
+        card_g = lm_model.tree_map(lambda t: t.to(dev), grads)
+        params, state, _ = train_opt.adamw8_update(params, grads, state, opt_cfg)
+        card_p, card_s, _ = train_opt.adamw8_update(card_p, card_g, card_s, opt_cfg)
+        for key, tree in (("card", card_g), ("cpu", grads)):
+            compressed[key] += [train_opt._q8(g.float()) for g in train_opt.tree_leaves(tree)]
+    r = dict(dtype=str(dtype)[6:], steps=OPT_STEPS,
+             codes_off={k: _codes_off(card_s[k], state[k]) for k in "mv"},
+             params_max_abs_err=max(float((a.cpu().float() - b.float()).abs().max()) for a, b in
+                                    zip(train_opt.tree_leaves(card_p),
+                                        train_opt.tree_leaves(params))),
+             compress_codes_off=_codes_off(compressed["card"], compressed["cpu"]),
+             compress_scales_differ=sum(int((a[1].cpu() != b[1]).sum())
+                                        for a, b in zip(compressed["card"], compressed["cpu"])))
+    print("lm train: one gradient:", json.dumps(r))
+    require(all(c["worst"] <= CODE_BAR["worst"] and c["share"] <= CODE_BAR["share"]
+                for c in r["codes_off"].values()),
+            f"lm train: adamw8's codes on the card off the CPU's on one gradient: {r}")
+    require(r["compress_codes_off"]["worst"] == 0 and r["compress_scales_differ"] == 0,
+            f"lm train: the compression on the card not bitwise the CPU's: {r}")
     return r
 
 
@@ -1826,30 +1987,25 @@ def _cli_resume(card: str) -> dict:
     return r
 
 
-def phase_lm_train(dev, card: str) -> dict:
-    """The port's training path on the card: the reduced TinyLlama against
-    the port on the CPU (fp32 and bf16), then TinyLlama-1.1B at its
-    published widths in bf16, AdamW, 10 steps of 4 x 2 048 tokens
-    (``batch_for_step``, seed 0), each attention layer's forward on the
-    flash_attention kernel and its backward the streaming recurrence's.
-    Every step launches the kernel twice per attention layer: in the
-    forward and again in the remat recompute of its group during the
-    backward.  The first step's launches are each held against
-    attention_ref; step ms by CUDA events (median after the first step),
-    peak memory, a profiled 11th step's device split; then the training
-    CLI resumed after an injected failure."""
-    out = dict(card=card, reduced=[_reduced_train_card_vs_cpu(dev, dt)
-                                   for dt in (torch.float32, torch.bfloat16)])
+def _full_width_train(dev, opt_name: str, steps: int) -> dict:
+    """TinyLlama-1.1B at its published widths in bf16, ``steps`` steps of
+    ``opt_name`` on 4 x 2 048 tokens (``batch_for_step``, seed 0), then a
+    profiled step on the first batch again, whose loss must be below the
+    first step's: the first step's flash launches each held against
+    attention_ref, step ms by CUDA events (median after the first step),
+    peak memory, the profiled step's device split.  The launch counters
+    are set to 0 before the steps and read after them."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg = lm_configs.get("tinyllama-1.1b")
     model = lm_model.build(cfg)
     per_step = _flash_per_step(cfg)
-    opt_cfg = train_opt.OptConfig(lr=3e-4, total_steps=TRAIN_STEPS, warmup_steps=1)
-    step_fn = train_step.make_train_step(model, "adamw", opt_cfg)
+    opt_cfg = train_opt.OptConfig(lr=3e-4, total_steps=steps, warmup_steps=1)
+    step_fn = train_step.make_train_step(model, opt_name, opt_cfg)
+    out = dict(opt=opt_name)
     t0 = time.perf_counter()
-    params, opt = train_step.make_init(model, "adamw")(torch.Generator(device=dev).manual_seed(0))
+    params, opt = train_step.make_init(model, opt_name)(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     out["init_s"] = time.perf_counter() - t0
 
@@ -1857,14 +2013,14 @@ def phase_lm_train(dev, card: str) -> dict:
         return sum(t.numel() * t.element_size() for t in train_opt.tree_leaves(tree)) / 1e9
 
     out["params_gb"], out["opt_gb"] = gb(params), gb(opt)
-    batches = _train_batches(cfg, TRAIN_B, TRAIN_S, TRAIN_STEPS + 1)
+    batches = _train_batches(cfg, TRAIN_B, TRAIN_S, steps)
     losses, ms, launched = [], [], []
     reset_launches()  # the main path, counted
-    for step, batch in enumerate(batches[:TRAIN_STEPS]):
+    for step, batch in enumerate(batches):
         batch = {k: v.to(dev) for k, v in batch.items()}
         n0 = fa_kernel.launches
         if step == 0:
-            with FlashRecorder("lm train") as rec:
+            with FlashRecorder(f"lm train {opt_name}") as rec:
                 (params, opt, m), t, _ = _event_call(lambda: step_fn(params, opt, batch))
         else:
             (params, opt, m), t, _ = _event_call(lambda: step_fn(params, opt, batch))
@@ -1878,31 +2034,63 @@ def phase_lm_train(dev, card: str) -> dict:
                                   shape=rec.shapes[0]))
     out["step_ms"] = float(np.median(ms[1:]))
     out["tokens_per_s"] = TRAIN_B * TRAIN_S / (out["step_ms"] / 1e3)
-    print("lm train: TinyLlama-1.1B losses", losses, "step ms", ms, flush=True)
-    require(all(np.isfinite(losses)), f"lm train: losses must be finite: {losses}")
-    require(np.mean(losses[-3:]) < losses[0],
-            f"lm train: the mean of the last 3 losses must be below the first: {losses}")
+    print(f"lm train: TinyLlama-1.1B {opt_name} losses", losses, "step ms", ms, flush=True)
+    require(all(np.isfinite(losses)), f"lm train ({opt_name}): losses must be finite: {losses}")
+    require(steps <= 3 or np.mean(losses[-3:]) < losses[0],
+            f"lm train ({opt_name}): the mean of the last 3 losses must be below the first: "
+            f"{losses}")
     require(all(n == per_step for n in launched) and len(rec.errors) == per_step,
-            f"lm train: each step must launch flash_attention {per_step} times (forward and "
-            f"remat recompute of {per_step // 2} attention layers): {launched}, "
+            f"lm train ({opt_name}): each step must launch flash_attention {per_step} times "
+            f"(forward and remat recompute of {per_step // 2} attention layers): {launched}, "
             f"{len(rec.errors)} checked")
 
     from torch.profiler import ProfilerActivity, profile
 
-    batch = {k: v.to(dev) for k, v in batches[TRAIN_STEPS].items()}
+    batch = {k: v.to(dev) for k, v in batches[0].items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        params, opt, _ = step_fn(params, opt, batch)
+        params, opt, m = step_fn(params, opt, batch)
         torch.cuda.synchronize()
+    out["first_batch_loss_after"] = float(m["loss"])
     out["split"] = _train_split(prof)
+    out["optimizer_share"] = out["split"]["optimizer_ms"] / out["split"]["total_ms"]
+    require(out["first_batch_loss_after"] < losses[0],
+            f"lm train ({opt_name}): the first batch's loss after {steps} steps, "
+            f"{out['first_batch_loss_after']}, must be below the first step's {losses[0]}")
     del prof, params, opt, batch, batches
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_train(dev, card: str) -> dict:
+    """The port's training path on the card: the reduced TinyLlama against
+    the port on the CPU (fp32 and bf16; AdamW, adamw8 and AdamW with the
+    int8 gradient compression), adamw8's update and the compression on one
+    gradient against the CPU, then TinyLlama-1.1B at its published widths
+    in bf16: 10 AdamW steps and 3 adamw8 steps of 4 x 2 048 tokens
+    (``_full_width_train``), each attention layer's forward on the
+    flash_attention kernel and its backward the streaming recurrence's.
+    Every step launches the kernel twice per attention layer: in the
+    forward and again in the remat recompute of its group during the
+    backward.  Then the training CLI resumed after an injected failure."""
+    out = dict(card=card, reduced=[_reduced_train_card_vs_cpu(dev, dt, opt, compress)
+                                   for dt in (torch.float32, torch.bfloat16)
+                                   for opt, compress in (("adamw", False), ("adamw8", False),
+                                                         ("adamw", True))],
+               same_gradients=[_adamw8_same_gradients(dev, dt)
+                               for dt in (torch.float32, torch.bfloat16)],
+               one_gradient=[_opt_one_gradient(dev, dt)
+                             for dt in (torch.float32, torch.bfloat16)])
+    out.update(_full_width_train(dev, "adamw", TRAIN_STEPS))
     out["plain_backward_ms_a_layer"] = _plain_backward_ms(dev)
+    out["adamw8"] = _full_width_train(dev, "adamw8", ADAMW8_STEPS)
     out["cli"] = _cli_resume(card)
     gc.collect()
     torch.cuda.empty_cache()
-    print("lm train:", json.dumps({k: v for k, v in out.items() if k != "reduced"}, default=float))
+    print("lm train:", json.dumps({k: v for k, v in out.items()
+                                   if k not in ("reduced", "same_gradients", "one_gradient")},
+                                  default=float))
     return out
 
 # ----------------------------------------------------------------- phase 12
@@ -2004,26 +2192,29 @@ def _shard_serve(dev, dmesh, want_tokens) -> dict:
     return out
 
 
-def _shard_train(dev, dmesh, unsharded_ms: float) -> dict:
+def _shard_train(dev, dmesh, unsharded_ms: float, opt_name: str = "adamw",
+                 compress: bool = False) -> dict:
     """TinyLlama-1.1B at full width (phase 11's seeded weights and batches,
-    4 x 2 048 tokens, AdamW): 3 steps of 2 microbatches through the sharded
-    step (``grad_pspecs``, ``batch_shardings``) against the unsharded step
-    on the same weights."""
+    4 x 2 048 tokens; ``opt_name``, ``compress``: with the int8 gradient
+    compression): 3 steps of 2 microbatches through the sharded step
+    (``grad_pspecs``, ``batch_shardings``, the state placed by
+    ``opt_state_placements``) against the unsharded step on the same
+    weights."""
     from repro_torch.models import sharding as Sh
 
     cfg = lm_configs.get("tinyllama-1.1b")
     model = lm_model.build(cfg)
     opt_cfg = train_opt.OptConfig(lr=3e-4, total_steps=TRAIN_STEPS, warmup_steps=1)
-    p0, o0 = train_step.make_init(model, "adamw")(torch.Generator(device=dev).manual_seed(0))
+    p0, o0 = train_step.make_init(model, opt_name)(torch.Generator(device=dev).manual_seed(0))
     batches = [{k: v.to(dev) for k, v in b.items()}
                for b in _train_batches(cfg, TRAIN_B, TRAIN_S, SHARD_TRAIN_STEPS)]
     specs, _ = Sh.check_divisible(p0, Sh.param_pspecs(p0), dmesh)
     pl = Sh.named(dmesh, specs)
     sp = Sh.place(p0, dmesh, pl)
-    so = {"m": Sh.place(o0["m"], dmesh, pl), "v": Sh.place(o0["v"], dmesh, pl),
-          "step": o0["step"]}
+    so = Sh.place(o0, dmesh, train_step.opt_state_placements(opt_name, o0, pl, dmesh))
     sstep = train_step.make_train_step(
-        model, "adamw", opt_cfg, microbatches=SHARD_MICROBATCHES, grad_pspecs=pl,
+        model, opt_name, opt_cfg, microbatches=SHARD_MICROBATCHES, compress_grads=compress,
+        grad_pspecs=pl,
         batch_shardings=lambda nd: Sh.batch_placements(dmesh, TRAIN_B // SHARD_MICROBATCHES, nd))
     losses, ms, launched = [], [], []
     for b in batches:
@@ -2035,10 +2226,13 @@ def _shard_train(dev, dmesh, unsharded_ms: float) -> dict:
         losses.append(float(m["loss"]))
         ms.append(t)
     sharded = [t.to_local() for t in train_opt.tree_leaves(sp)]
+    sharded_state = [t.to_local() if hasattr(t, "to_local") else t
+                     for t in train_opt.tree_leaves(so)]
     del so
     # the unsharded step on the same weights and batches, outside the mesh
     Sh.clear_active_mesh()
-    step = train_step.make_train_step(model, "adamw", opt_cfg, microbatches=SHARD_MICROBATCHES)
+    step = train_step.make_train_step(model, opt_name, opt_cfg, microbatches=SHARD_MICROBATCHES,
+                                      compress_grads=compress)
     p, o, ref, ref_ms = p0, o0, [], []
     for b in batches:
         (p, o, m), t, _ = _event_call(lambda: step(p, o, b))
@@ -2057,14 +2251,17 @@ def _shard_train(dev, dmesh, unsharded_ms: float) -> dict:
         diffs.append(float(d.max()))
         over += int((d > worst + SHARD_TRAIN_STEPS * BF16_ULP * torch.maximum(a.abs(), b.abs()))
                     .sum())
-    out = dict(losses=losses, unsharded_losses=ref, losses_bitwise=losses == ref,
+    out = dict(opt=opt_name, compress_grads=compress, losses=losses, unsharded_losses=ref,
+               losses_bitwise=losses == ref,
                loss_max_rel_err=max(abs(a - b) / abs(b) for a, b in zip(losses, ref)),
                params_bitwise=max(diffs) == 0.0, params_max_abs_err=max(diffs),
+               state_bitwise=all(torch.equal(a, b) for a, b in zip(
+                   sharded_state, train_opt.tree_leaves(o))),
                adam_worst_case=worst, entries_over_worst_case=over,
                flash_launches_per_step=launched, step_ms_each=ms,
                step_ms=float(np.median(ms[1:])), unsharded_step_ms=float(np.median(ref_ms[1:])),
                phase11_step_ms=unsharded_ms)
-    del sp, p, o, p0, o0, sharded
+    del sp, p, o, p0, o0, sharded, sharded_state
     return out
 
 
@@ -2157,6 +2354,13 @@ def phase_lm_shard(dev, card: str, lm: dict, train: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         out["train"] = _shard_train(dev, dmesh, train["step_ms"])
         out["train"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        for key, opt, compress in (("train_adamw8", "adamw8", False),
+                                   ("train_compress", "adamw", True)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            out[key] = _shard_train(dev, dmesh, train["step_ms"], opt, compress)
+            out[key]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out["launches"] = read_launches()
         gc.collect()
         torch.cuda.empty_cache()
@@ -2177,18 +2381,175 @@ def phase_lm_shard(dev, card: str, lm: dict, train: dict) -> dict:
     require(sv["tokens_equal"], "lm shard: Yi-6B's greedy tokens under the mesh differ from "
             "phase 10's")
     per_mb = _flash_per_step(lm_configs.get("tinyllama-1.1b"))
-    require(all(n == per_mb * SHARD_MICROBATCHES for n in tr["flash_launches_per_step"]),
-            f"lm shard: each sharded step must launch flash_attention {per_mb} times a "
-            f"microbatch: {tr['flash_launches_per_step']}")
     tol = TRAIN_LOSS_TOL[torch.bfloat16]
-    require(all(np.isfinite(tr["losses"])) and all(
-        np.isclose(a, b, **tol) for a, b in zip(tr["losses"], tr["unsharded_losses"])),
-        f"lm shard: sharded losses {tr['losses']} against {tr['unsharded_losses']}")
-    require(tr["params_bitwise"] or tr["entries_over_worst_case"] == 0,
-            f"lm shard: {tr['entries_over_worst_case']} sharded parameters beyond Adam's worst "
-            f"case off the unsharded step's")
+    for key in ("train", "train_adamw8", "train_compress"):
+        tr = out[key]
+        tag = f"lm shard ({tr['opt']}{', compressed' if tr['compress_grads'] else ''})"
+        require(all(n == per_mb * SHARD_MICROBATCHES for n in tr["flash_launches_per_step"]),
+                f"{tag}: each sharded step must launch flash_attention {per_mb} times a "
+                f"microbatch: {tr['flash_launches_per_step']}")
+        require(all(np.isfinite(tr["losses"])) and all(
+            np.isclose(a, b, **tol) for a, b in zip(tr["losses"], tr["unsharded_losses"])),
+            f"{tag}: sharded losses {tr['losses']} against {tr['unsharded_losses']}")
+        require(tr["params_bitwise"] or tr["entries_over_worst_case"] == 0,
+                f"{tag}: {tr['entries_over_worst_case']} sharded parameters beyond Adam's "
+                f"worst case off the unsharded step's")
     require(mo["equal"] and mo["finite"], f"lm shard: moe_ffn_ep differs from moe_ffn: "
             f"{mo['max_abs_err']}")
+    return out
+
+
+# ----------------------------------------------------------------- phase 13
+
+
+# the torch twins of the reference's examples, each its own process on the
+# card (``chip_smoke.py --example NAME``: the twin's own main with no
+# arguments, so on the card), the three side by side: each is host-bound
+# (its Vamana build) and the machine has cores to spare.  The kernels each
+# must launch; distributed_search's scan launches binary_ip alone.
+EXAMPLES = {"quickstart_torch": ("binary_ip", "int4_dist"),
+            "serve_batch_torch": ("binary_ip", "int4_dist"),
+            "distributed_search_torch": ("binary_ip",)}
+EXAMPLE_TIMEOUT_S = 600
+EXAMPLE_LOGS = ROOT / "build" / "examples"
+KEPT_EVERY = 4  # a twin keeps the inputs of calls 1, 4, 16, ... of each kernel entry
+# the kernel entries the wrappers launch through, by kernel
+ENTRIES = ((bip_kernel, "binary_ip_cuda", "binary_ip"),
+           (bip_kernel, "estimate_dist2_cuda", "binary_ip"),
+           (i4_kernel, "int4_dist_cuda", "int4_dist"))
+
+
+def _plain_of(entry: str, args: tuple) -> torch.Tensor:
+    """The plain version of a kernel entry's call, on the same tensors."""
+    q, codes, *tables, ids = args
+    rows = [codes, *tables] if ids is None else [t[ids] for t in (codes, *tables)]
+    if entry == "binary_ip_cuda":
+        return bip_ref.binary_ip_ref(q, *rows)
+    if entry == "estimate_dist2_cuda":
+        return bip_ref.estimate_dist2_ref(q, *rows)
+    return i4_ref.int4_dist2_ref(q, *rows)
+
+
+def _observed(run, name: str) -> None:
+    """Runs ``run`` (a twin's main path) with the kernels observed: the
+    launch counters set to 0 just before it and read just after; calls 1,
+    KEPT_EVERY, KEPT_EVERY^2, ... of each kernel entry keep their inputs
+    (the entry, unchanged, still counts its launches), and after the run
+    each kept call is launched again and held against its plain version at
+    TOL.  Writes the counts and the checks to EXAMPLE_LOGS/<name>.json."""
+    kept = {entry: [] for _, entry, _ in ENTRIES}
+    calls = dict.fromkeys(kept, 0)
+    originals = {entry: getattr(mod, entry) for mod, entry, _ in ENTRIES}
+
+    def keeping(entry):
+        def call(*args, **kw):
+            calls[entry] += 1
+            if calls[entry] == KEPT_EVERY ** len(kept[entry]):
+                kept[entry].append((tuple(a if a is None else a.clone() for a in args), kw))
+            return originals[entry](*args, **kw)
+        return call
+
+    for mod, entry, _ in ENTRIES:
+        setattr(mod, entry, keeping(entry))
+    try:
+        reset_launches()
+        run()
+        launches = read_launches()
+    finally:
+        for mod, entry, _ in ENTRIES:
+            setattr(mod, entry, originals[entry])
+    checks = []
+    for _, entry, kernel in ENTRIES:
+        for args, kw in kept[entry]:
+            got, want = originals[entry](*args, **kw), _plain_of(entry, args)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            shape = f"B={args[0].shape[0]} N={got.shape[1]} d={args[0].shape[1]} " \
+                    f"table={args[1].shape[0]} {args[0].dtype}"
+            checks.append(dict(kernel=kernel, entry=entry, shape=shape, max_abs_err=err))
+            require(torch.allclose(got, want, **TOL[kernel]),
+                    f"examples: {name}: {entry} disagrees with its plain version at {shape}: "
+                    f"{err}")
+    EXAMPLE_LOGS.mkdir(parents=True, exist_ok=True)
+    (EXAMPLE_LOGS / f"{name}.json").write_text(json.dumps(dict(launches=launches,
+                                                               checks=checks)))
+
+
+def _example_rank(rank: int, world: int, port: int, device_type: str, results) -> None:
+    """distributed_search_torch's rank (a spawned process), rank 0 observed
+    as ``_observed`` observes a twin."""
+    import distributed_search_torch as ex
+
+    if rank:
+        return ex.rank_main(rank, world, port, device_type, results)
+    _observed(lambda: ex.rank_main(rank, world, port, device_type, results),
+              "distributed_search_torch")
+
+
+def run_example(name: str) -> int:
+    """``chip_smoke.py --example NAME``: the twin ``examples/NAME.py`` by its
+    own main, with no arguments (so on the card), observed: in this
+    process, or in distributed_search's rank 0, which the twin spawns."""
+    import importlib
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    ex = importlib.import_module(name)
+    if name == "distributed_search_torch":
+        ex.rank_main = _example_rank  # the spawned rank runs the twin's own rank_main
+        ex.main([])
+    else:
+        _observed(lambda: ex.main([]), name)
+    return 0
+
+
+def phase_examples(card: str) -> dict:
+    """The twins as subprocesses on the card, started together: each must
+    exit 0 and print ``OK`` last, its run must have launched its kernels
+    (EXAMPLES), and the calls it kept must agree with the plain versions;
+    its recall lines, launches, checks and wall seconds (from its start to
+    its exit, beside the other two) are reported."""
+    import re
+
+    EXAMPLE_LOGS.mkdir(parents=True, exist_ok=True)
+    out, procs, ends = dict(card=card, side_by_side=list(EXAMPLES)), {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name in EXAMPLES:
+            (EXAMPLE_LOGS / f"{name}.json").unlink(missing_ok=True)
+            with open(EXAMPLE_LOGS / f"{name}.out", "w") as so, \
+                    open(EXAMPLE_LOGS / f"{name}.err", "w") as se:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--example", name], cwd=ROOT,
+                    stdout=so, stderr=se, text=True)
+        while len(ends) < len(procs) and time.perf_counter() - t0 < EXAMPLE_TIMEOUT_S:
+            for name, proc in procs.items():
+                if name not in ends and proc.poll() is not None:
+                    ends[name] = time.perf_counter() - t0
+            time.sleep(0.2)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    launches = dict.fromkeys(KERNELS, 0)
+    for name, proc in procs.items():
+        lines = (EXAMPLE_LOGS / f"{name}.out").read_text().splitlines()
+        require(name in ends and proc.returncode == 0 and lines and lines[-1] == "OK",
+                f"examples: {name} exited {proc.returncode} after {ends.get(name)} s: "
+                f"{(EXAMPLE_LOGS / f'{name}.err').read_text()[-2000:]}")
+        seen = json.loads((EXAMPLE_LOGS / f"{name}.json").read_text())
+        out[name] = dict(wall_s=ends[name], exit_code=proc.returncode, lines=lines,
+                         recall={m.group(1) or "recall": float(m.group(2)) for m in (
+                             re.search(r"(?:^(\w+)\s+)?recall(?:@10)?\s*=\s*([0-9.]+)", ln)
+                             for ln in lines) if m}, **seen)
+        print(f"examples: {name}:", json.dumps(out[name]), flush=True)
+        require(all(seen["launches"][k] > 0 for k in EXAMPLES[name]),
+                f"examples: {name} launched {seen['launches']}, not each of {EXAMPLES[name]}")
+        require({c["kernel"] for c in seen["checks"]} >= set(EXAMPLES[name]),
+                f"examples: {name} kept no call of some of {EXAMPLES[name]}: {seen['checks']}")
+        for k, n in seen["launches"].items():
+            launches[k] += n
+    out["launches"] = launches
     return out
 
 
@@ -2200,6 +2561,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs only on a card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--example"]:
+        return run_example(sys.argv[2])
     dev = torch.device("cuda")
     card = card_line()
     print("card:", card)
@@ -2251,6 +2614,8 @@ def main() -> int:
     phase_s["lm train"] = time.perf_counter() - t0 - sum(phase_s.values())
     shard = phase_lm_shard(dev, card, lm, train)
     phase_s["lm shard"] = time.perf_counter() - t0 - sum(phase_s.values())
+    examples = phase_examples(card)
+    phase_s["examples"] = time.perf_counter() - t0 - sum(phase_s.values())
     print(f"phase seconds on {card}:", json.dumps(phase_s))
 
     # each phase's launches by kernel, summed over that phase's main runs
@@ -2262,8 +2627,10 @@ def main() -> int:
         "verify": verify["launches"],
         "attention kernels": attn_launches,
         "lm serve": lm["launches"],
-        "lm train": {n: train["launches"][n] + train["cli"]["launches"][n] for n in KERNELS},
+        "lm train": {n: train["launches"][n] + train["adamw8"]["launches"][n]
+                     + train["cli"]["launches"][n] for n in KERNELS},
         "lm shard": shard["launches"],
+        "examples": examples["launches"],
     }
     report = []
     for name, spec in KERNELS.items():
@@ -2275,8 +2642,11 @@ def main() -> int:
             max_abs_err=max([r["max_abs_err"] for r in mine]
                             + [c["max_abs_err"] for c in velo["chunk_check"]
                                if name == "binary_ip"]
+                            + [c["max_abs_err"] for ex in EXAMPLES for c in examples[ex]["checks"]
+                               if c["kernel"] == name]
                             + ([lm["flash_checked"]["max_abs_err"],
-                                train["flash_checked"]["max_abs_err"]]
+                                train["flash_checked"]["max_abs_err"],
+                                train["adamw8"]["flash_checked"]["max_abs_err"]]
                                if name == "flash_attention" else [])),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
@@ -2287,7 +2657,7 @@ def main() -> int:
         dict(card=card, kernels=report, launches_by_phase=path_launches, shapes=rows,
              attention=attn_rows, tables=tables, search=search, serving_plane=plane,
              velo_device=velo, kv_serve=kv, verify=verify, lm_serve=lm, lm_train=train,
-             lm_shard=shard, phase_s=phase_s,
+             lm_shard=shard, examples=examples, phase_s=phase_s,
              sass=sass),
         indent=1, default=float))
     print(json.dumps({"kernels": report}))

@@ -10,8 +10,10 @@ For each cell:
   * build the model and the parameter / optimizer / cache / batch
     placements from the specs (``models.sharding``), every tensor a meta
     tensor (no allocation);
-  * run rank 0's part of the step (train: ``make_train_step`` with AdamW
-    moments mirroring their params; prefill; decode) under
+  * run rank 0's part of the step (train: ``make_train_step``, the
+    optimizer state placed by ``train_step.opt_state_placements``: AdamW's
+    moments mirror their params, adamw8's codes are replicated; prefill;
+    decode) under
     ``launch.trace_analysis.Trace``, which records its local FLOPs,
     op-boundary bytes, collectives and the peak of live temporaries ->
     launch/out/dryrun/<cell>.json, in the reference's record layout.
@@ -160,9 +162,7 @@ def run_lm_cell(arch: str, shape: str, multi_pod: bool, microbatches: int | None
         if cell.kind == "train":
             opt_init, _ = Opt.OPTIMIZERS[opt_name]
             opt0 = opt_init(params_shape)
-            # moments mirror their parameter's placements
-            opt = {"m": Sh.place(opt0["m"], dmesh, psh), "v": Sh.place(opt0["v"], dmesh, psh),
-                   "step": opt0["step"]}
+            opt = Sh.place(opt0, dmesh, TS.opt_state_placements(opt_name, opt0, psh, dmesh))
             batch = _placed_batch(cell.batch, dmesh)
             mb = microbatches or max(1, cell.global_batch // (ndev // mesh.sizes["model"]))
 

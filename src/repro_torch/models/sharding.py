@@ -307,12 +307,27 @@ def wrap_like(local: torch.Tensor, like):
                               shape=like.shape, stride=like.stride())
 
 
+def shard_like(full_t: torch.Tensor, like):
+    """This rank's slice of the full tensor ``full_t`` as a DTensor placed
+    like ``like`` (``full``'s inverse)."""
+    return wrap_like(local_slice(full_t, like.device_mesh, like.placements).contiguous(), like)
+
+
 def full(tree):
-    """Full tensors of a tree of DTensors (an all-gather of every leaf)."""
+    """Full tensors of a tree of DTensors (an all-gather of every sharded
+    leaf over its own mesh, recorded like every collective here); the
+    inverse of ``local_slice``."""
     from torch.distributed.tensor import DTensor
 
     def one(t):
-        return t.full_tensor() if isinstance(t, DTensor) else t
+        if not isinstance(t, DTensor):
+            return t
+        out, mesh = t.to_local(), t.device_mesh
+        # local_slice splits in mesh order: gather the innermost split first
+        for name, pl in reversed(list(zip(_names(mesh), t.placements))):
+            if pl.is_shard():
+                out = all_gather(out, name, pl.dim, mesh)
+        return out
 
     if isinstance(tree, dict):
         return {k: full(v) for k, v in tree.items()}
@@ -388,12 +403,14 @@ def _group(axis: str):
     return _ACTIVE["mesh"].get_group(axis)
 
 
-def all_gather(t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-    """Concatenate the ranks' ``t`` along ``dim`` over ``axis``."""
-    n = size(axis)
+def all_gather(t: torch.Tensor, axis: str, dim: int, mesh=None) -> torch.Tensor:
+    """Concatenate the ranks' ``t`` along ``dim`` over ``axis`` of ``mesh``
+    (the active mesh by default)."""
+    mesh = mesh if mesh is not None else _ACTIVE["mesh"]
+    n = mesh_sizes(mesh)[axis]
     src = t.movedim(dim, 0).contiguous()
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-    _all_gather(out, src, group=_group(axis))
+    _all_gather(out, src, group=mesh.get_group(axis))
     _record("all-gather", _nbytes(src), _nbytes(out), n)
     # in t's own layout: a matmul's kernel (and its rounding) can depend on it
     return out.movedim(0, dim).contiguous()

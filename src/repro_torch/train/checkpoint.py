@@ -56,13 +56,13 @@ def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
 
 def save(ckpt_dir: str, step: int, state: dict) -> str:
     """Write ``state`` as step ``step``; DTensor leaves are gathered whole
-    first, and with a process group up only rank 0 writes (the others wait
-    for it)."""
+    first (``Sh.full``), and with a process group up only rank 0 writes (the
+    others wait for it)."""
     from torch.distributed.tensor import DTensor
 
     paths = _paths(state)
     sharded = any(isinstance(v, DTensor) for _, v in paths)
-    paths = [(k, v.full_tensor() if isinstance(v, DTensor) else v) for k, v in paths]
+    paths = [(k, Sh.full(v)) for k, v in paths]
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     if sharded and dist.get_rank() != 0:
         dist.barrier()

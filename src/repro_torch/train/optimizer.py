@@ -172,12 +172,20 @@ def adamw_update(params, grads, state, cfg: OptConfig, gnorm=None):
 # ----------------------------------------------------------- blockwise int8
 
 
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as a true division on every device: CUDA divides by a
+    Python scalar as a product with its reciprocal, a last bit apart from
+    the CPU's (and the reference's) quotient; by a 0-d tensor on ``x``'s
+    device it divides."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def _q8(x32: torch.Tensor):
     """fp32 (N,) -> (int8 codes (blocks, BLOCK), fp32 scales (blocks,))."""
     n = x32.numel()
     pad = (-n) % BLOCK
     xp = torch.nn.functional.pad(x32.reshape(-1), (0, pad)).reshape(-1, BLOCK)
-    scale = torch.amax(torch.abs(xp), dim=1) / 127.0
+    scale = _div(torch.amax(torch.abs(xp), dim=1), 127.0)
     scale = torch.clamp_min(scale, 1e-12)
     q = torch.clamp(torch.round(xp / scale[:, None]), -127, 127).to(torch.int8)
     return q, scale.float()
@@ -202,7 +210,7 @@ def _q8log(v32: torch.Tensor):
     up = torch.nn.functional.pad(u, (0, pad), value=-69.0).reshape(-1, BLOCK)
     mn = up.amin(dim=1)
     mx = up.amax(dim=1)
-    scale = torch.clamp_min((mx - mn) / 254.0, 1e-12)
+    scale = torch.clamp_min(_div(mx - mn, 254.0), 1e-12)
     q = torch.clamp(torch.round((up - mn[:, None]) / scale[:, None]), 0, 254)
     return (q - 127).to(torch.int8), scale.float(), mn.float()
 

@@ -22,8 +22,14 @@ reshards the reshaped batch.  A MoE's capacity groups are therefore the
 reference's.
 The gradients and the fp32 accumulator carry the params' placements
 (``to_local``'s backward gives them); ``grad_pspecs``, where given, is
-checked against them.  The optimizer runs on each rank's shards with the
-global gradient norm summed over the ranks.
+checked against them.  The optimizer state is placed by
+``opt_state_placements``, the reference's specs: AdamW's moments mirror the
+params and update on each rank's shards; adamw8's blockwise codes are
+replicated and update each leaf over its global extent (the full gradient
+and parameter gathered, one leaf at a time), so the codes are the
+unsharded step's; the new parameter is this rank's slice.  Either way the
+gradient norm is the global one, summed over the ranks, and
+``compress_grads`` quantizes each gradient over its global blocks too.
 """
 
 from __future__ import annotations
@@ -36,15 +42,54 @@ from repro_torch.models import sharding as Sh
 from repro_torch.train import optimizer as Opt
 
 
+# optimizers whose state is elementwise: their moments mirror the params
+# and update shard by shard; any other's state is replicated
+ELEMENTWISE = ("adamw",)
+
+
+def opt_state_placements(opt_name: str, opt_state, param_placements, mesh):
+    """The placements tree of ``opt_state`` on ``mesh`` (``Sh.place``'s
+    argument), the reference's dry-run specs: AdamW's moments mirror their
+    parameters' placements; every leaf of adamw8's blockwise state is
+    replicated.  ``step`` stays a plain (replicated) tensor."""
+    if opt_name in ELEMENTWISE:
+        return {"m": param_placements, "v": param_placements, "step": None}
+    rep = Sh.placements_of(mesh, ())
+    every = {k: Sh.tree_map_with_path(lambda path, leaf: rep, opt_state[k]) for k in ("m", "v")}
+    return {**every, "step": None}
+
+
+def _qdq(g):
+    q, s = Opt._q8(g.float())
+    return Opt._dq8(q, s, g.shape).to(g.dtype)
+
+
 def _compress_grads_int8(grads):
     """Blockwise-int8 quantize-dequantize of gradients.  Placed between the
     backward pass and the optimizer so the all-reduce operates on values that
-    survive int8 transport; here it models the numerics."""
-    def qdq(g):
-        q, s = Opt._q8(g.float())
-        return Opt._dq8(q, s, g.shape).to(g.dtype)
+    survive int8 transport; here it models the numerics.  A DTensor gradient
+    is quantized over its global extent, blocks of 256 over the flattened
+    full tensor as GSPMD computes the reference's hook, and handed back
+    placed like itself."""
+    def one(g):
+        if isinstance(g, DTensor):
+            return Sh.shard_like(_qdq(Sh.full(g)), g)
+        return _qdq(g)
     with torch.no_grad():
-        return Mod.tree_map(qdq, grads)
+        return Mod.tree_map(one, grads)
+
+
+def loss_and_grads(model: Mod.Model, params, batch, ce_chunk: int = 512):
+    """(loss, grads) of ``forward_train`` on one batch: the grads a flat list
+    in ``Opt.tree_leaves(params)``'s order, in the parameters' dtypes, zeros
+    where the loss does not reach a leaf."""
+    flat = Opt.tree_leaves(params)
+    with torch.enable_grad():
+        leaves = [p.detach().requires_grad_(True) for p in flat]
+        loss = Mod.forward_train(model, Opt.tree_unflatten(params, leaves), batch,
+                                 ce_chunk=ce_chunk)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
 
 
 def make_train_step(
@@ -61,21 +106,13 @@ def make_train_step(
     _, opt_update = Opt.OPTIMIZERS[opt_name]
 
     def value_and_grad(params, batch):
-        """(loss, grads): grads in the parameters' dtypes, zeros where the
-        loss does not reach a leaf."""
-        flat = Opt.tree_leaves(params)
-        with torch.enable_grad():
-            leaves = [p.detach().requires_grad_(True) for p in flat]
-            loss = Mod.forward_train(model, Opt.tree_unflatten(params, leaves), batch,
-                                     ce_chunk=ce_chunk)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+        loss, grads = loss_and_grads(model, params, batch, ce_chunk)
         if grad_pspecs is not None:
             for g, pl in zip(grads, Opt.leaves_up_to(params, grad_pspecs)):
                 if tuple(g.placements) != tuple(pl):
                     raise ValueError(f"a gradient placed {tuple(g.placements)}, "
                                      f"not like its parameter's spec {tuple(pl)}")
-        return loss.detach(), grads
+        return loss, grads
 
     def _zeros_f32(p):
         """The fp32 accumulator of ``p``'s gradient, placed like ``p``."""
@@ -97,8 +134,6 @@ def make_train_step(
                 for part in parts]
 
     def train_step(params, opt_state, batch):
-        if Sh.active() and opt_name != "adamw":
-            raise ValueError("the sharded step runs AdamW (its moments mirror the params)")
         if microbatches == 1:
             loss, grads = value_and_grad(params, batch)
         else:
@@ -121,8 +156,8 @@ def make_train_step(
             if compress_grads:
                 grads = _compress_grads_int8(grads)
             if Sh.active():
-                params, opt_state, om = _sharded_update(opt_update, params, grads, opt_state,
-                                                        opt_cfg)
+                params, opt_state, om = _sharded_update(opt_name, opt_update, params, grads,
+                                                        opt_state, opt_cfg)
             else:
                 params, opt_state, om = opt_update(params, grads, opt_state, opt_cfg)
         metrics = {"loss": loss, **om}
@@ -131,21 +166,40 @@ def make_train_step(
     return train_step
 
 
-def _sharded_update(opt_update, params, grads, opt_state, opt_cfg):
-    """The optimizer on this rank's shards (DTensor leaves -> their local
-    tensors and back, with the same placements), the gradient norm summed
-    over the ranks."""
+def _sharded_update(opt_name, opt_update, params, grads, opt_state, opt_cfg):
+    """The optimizer under a mesh, the gradient norm summed over the ranks:
+    an elementwise optimizer on this rank's shards (DTensor leaves -> their
+    local tensors and back, with the same placements); any other one leaf
+    at a time over the leaf's global extent, its replicated state updated
+    whole on every rank and this rank's slice of the new parameter kept."""
+    flat_p = Opt.tree_leaves(params)
+    flat_g = Opt.leaves_up_to(params, grads)
+    for p, g in zip(flat_p, flat_g):
+        if tuple(g.placements) != tuple(p.placements):
+            raise ValueError(f"a gradient placed {tuple(g.placements)} reaches the optimizer "
+                             f"beside its parameter's {tuple(p.placements)}")
+    gnorm = torch.sqrt(Sh.global_sq_sum(flat_g))
+
     def local(tree):
         return Mod.tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t, tree)
-
-    gnorm = torch.sqrt(Sh.global_sq_sum(Opt.tree_leaves(grads)))
-    new_p, new_s, om = opt_update(local(params), local(grads), local(opt_state), opt_cfg,
-                                  gnorm=gnorm)
 
     def wrap(new, like):
         return Sh.wrap_like(new, like) if isinstance(like, DTensor) else new
 
-    return Mod.tree_map(wrap, new_p, params), Mod.tree_map(wrap, new_s, opt_state), om
+    if opt_name in ELEMENTWISE:
+        new_p, new_s, om = opt_update(local(params), local(grads), local(opt_state), opt_cfg,
+                                      gnorm=gnorm)
+        return Mod.tree_map(wrap, new_p, params), Mod.tree_map(wrap, new_s, opt_state), om
+    outs = []
+    for p, g, m, v in zip(flat_p, flat_g, Opt.leaves_up_to(params, opt_state["m"]),
+                          Opt.leaves_up_to(params, opt_state["v"])):
+        full_p, s, om = opt_update(Sh.full(p), Sh.full(g),
+                                   {"m": local(m), "v": local(v), "step": opt_state["step"]},
+                                   opt_cfg, gnorm=gnorm)
+        outs.append((Sh.shard_like(full_p, p), Mod.tree_map(wrap, s["m"], m),
+                     Mod.tree_map(wrap, s["v"], v)))
+    new_s = {k: Opt.tree_unflatten(params, [o[i] for o in outs]) for i, k in ((1, "m"), (2, "v"))}
+    return Opt.tree_unflatten(params, [o[0] for o in outs]), {**new_s, "step": s["step"]}, om
 
 
 def make_init(model: Mod.Model, opt_name: str = "adamw"):

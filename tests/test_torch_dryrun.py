@@ -7,7 +7,9 @@ line each, through the reference's ``collective_stats``), byte counts of a
 shape and dtype (its ``_shape_bytes``), FLOPs of loops (a 64-iteration loop
 counted 64 times, as the reference's trip-count correction intends), and
 the per-device argument bytes of ``rwkv6-7b long_500k pod1`` (the reference's
-own test cell) from the reference's specs.
+own test cell) and of an adamw8 train cell of TinyLlama-1.1B on a 2 x 2
+mesh (every adamw8 state leaf whole on every device, the reference's
+``P()``) from the reference's specs.
 """
 
 import json
@@ -184,3 +186,57 @@ def test_production_cell_on_a_fake_group():
                         "rwkv6-7b__long_500k__pod1.json")
     with open(path) as f:
         assert json.load(f)["status"] == "ok"
+
+
+_ADAMW8_CELL = textwrap.dedent("""
+    import json
+    from repro_torch.launch import dryrun, mesh as mesh_mod, shapes
+    B, S = %(B)d, %(S)d
+    batch = {"tokens": shapes.S((B, S), shapes.I32), "labels": shapes.S((B, S), shapes.I32)}
+    cell = shapes.CellSpec(kind="train", batch=batch, seq_len=S, global_batch=B)
+    print(json.dumps(dryrun.run_lm_cell("tinyllama-1.1b", "adamw8", False, 1, opt_name="adamw8",
+                                        cell=cell, mesh=mesh_mod.Mesh((2, 2), ("data", "model")))))
+""")
+ADAMW8_B, ADAMW8_S = 4, 64
+
+
+def _reference_adamw8_argument_bytes() -> int:
+    """Per-device bytes of TinyLlama-1.1B's params by the reference's specs at
+    2 x 2, its adamw8 state whole, and the (B, S) int32 tokens and labels
+    with their rows over 'data'."""
+    import jax
+
+    from repro import configs as ref_configs
+    from repro.models import model as ref_model
+    from repro.models import sharding as ref_sh
+    from repro.train import optimizer as ref_opt
+
+    mesh = types.SimpleNamespace(axis_names=("data", "model"), devices=np.empty((2, 2)))
+    sizes = {"data": 2, "model": 2}
+    params = ref_model.params_specs(ref_model.build(ref_configs.get("tinyllama-1.1b")))
+    pspecs, _ = ref_sh.check_divisible(params, ref_sh.param_pspecs(params), mesh)
+    is_spec = lambda x: isinstance(x, jax.sharding.PartitionSpec)  # noqa: E731
+    total = 0
+    for leaf, spec in zip(jax.tree.leaves(params), jax.tree.leaves(pspecs, is_leaf=is_spec)):
+        n = 1
+        for i, dim in enumerate(leaf.shape):
+            axes = spec[i] if i < len(spec) else None
+            axes = () if axes is None else (axes if isinstance(axes, tuple) else (axes,))
+            n *= dim // int(np.prod([sizes[a] for a in axes]))
+        total += n * np.dtype(leaf.dtype).itemsize
+    state = jax.eval_shape(ref_opt.OPTIMIZERS["adamw8"][0], params)
+    total += sum(int(np.prod(x.shape)) * np.dtype(x.dtype).itemsize
+                 for x in jax.tree.leaves(state))
+    return total + 2 * (ADAMW8_B // 2) * ADAMW8_S * 4
+
+
+def test_adamw8_train_cell_places_its_state_whole():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c",
+                           _ADAMW8_CELL % dict(B=ADAMW8_B, S=ADAMW8_S)],
+                          env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert rec["status"] == "ok", rec
+    assert rec["n_devices"] == 4 and rec["cost"]["flops_per_device"] > 0
+    assert rec["memory"]["argument_bytes"] == _reference_adamw8_argument_bytes()

@@ -3,8 +3,8 @@ nor ``ml_dtypes`` (bfloat16 arrays travel as their uint16 bits).
 
 A subprocess whose ``sys.modules`` poisons ``jax``, ``repro`` and
 ``ml_dtypes`` (an import of any raises) imports every module of
-``repro_torch`` and runs a 200-vector VeloANN search on the CPU.  A scan of the port's sources and of
-``chip_smoke.py`` finds no import of any of them.
+``repro_torch`` and runs a 200-vector VeloANN search on the CPU.  A scan of the port's sources, of
+``chip_smoke.py`` and of the torch twins of the examples finds no import of any of them.
 """
 
 import os
@@ -75,8 +75,14 @@ def test_port_runs_with_jax_and_repro_poisoned():
     assert {f"repro_torch.{m}" for m in NEW_MODULES} <= walked, proc.stdout
 
 
+# the examples' torch twins
+EXAMPLES = ("quickstart_torch", "serve_batch_torch", "distributed_search_torch",
+            "rag_serving_torch", "train_lm_torch")
+
+
 def test_no_jax_or_repro_import_in_the_port_sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + [ROOT / "examples" / f"{name}.py" for name in EXAMPLES])
     assert all(f.exists() for f in files)
     assert {PORT / (m.replace(".", "/") + ".py") for m in NEW_MODULES} <= set(files)
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"

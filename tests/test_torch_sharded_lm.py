@@ -295,8 +295,7 @@ _PORT = textwrap.dedent("""
                     model, "adamw", oc, microbatches=MB, ce_chunk=16, grad_pspecs=pl,
                     batch_shardings=lambda nd: Sh.batch_placements(dm, B // MB, nd))
                 sp = Sh.place(params, dm, pl)
-                so = {"m": Sh.place(opt0["m"], dm, pl), "v": Sh.place(opt0["v"], dm, pl),
-                      "step": opt0["step"]}
+                so = Sh.place(opt0, dm, TS.opt_state_placements("adamw", opt0, pl, dm))
                 losses = []
                 for b in batches:
                     sp, so, m = sstep(sp, so, {k: put(v) for k, v in b.items()})
@@ -327,8 +326,8 @@ _PORT = textwrap.dedent("""
                 wpl = Sh.named(wide, wspecs)
                 like = {"params": params, "opt": opt0}
                 back, n = ckpt.restore(f"{tmp}/{arch}.ckpt", like,
-                                       shardings={"params": wpl,
-                                                  "opt": {"m": wpl, "v": wpl, "step": None}},
+                                       shardings={"params": wpl, "opt": TS.opt_state_placements(
+                                           "adamw", opt0, wpl, wide)},
                                        mesh=wide)
                 placed_ok = all(tuple(t.placements) == tuple(q) for t, q in zip(
                     Opt.tree_leaves(back["params"]), Opt.leaves_up_to(params, wpl)))
