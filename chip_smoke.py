@@ -33,8 +33,7 @@ Phases (each one that fails ends the run with a non-zero exit):
               a 10 000 x 128 index, torch engine on the card with fuse on and
               device_beam off/on, against the batch engine on the same index;
               the kernels' launch counters are set to 0 before each torch run
-              and read after it; a profiled 50-query run gives the device's
-              busy share, its top kernels and its launch and copy totals
+              and read after it
   6. serving plane  the multi-tenant ServingPlane on phase 5's index (one
               combined table on the torch engine): a 1-tenant plane equals the
               isolated system, a 2-tenant static partition two isolated
@@ -899,25 +898,7 @@ def phase_search(n: int = 10_000, d: int = 128) -> tuple[dict, tuple]:
         r["launches_per_query"] = {k: v / n_q for k, v in r["launches"].items()}
         print("search:", json.dumps(r))
     print(f"search: index build {build_s:.1f} s (host NumPy), 200 queries per run")
-    busy = _busy_share(ds, graph, qb)
-    print("search: profiled torch run:", json.dumps(busy))
-    return dict(build_s=build_s, batch=ref, torch=runs, profiled=busy), (ds, graph, qb)
-
-
-def _busy_share(ds, graph, qb, n_queries: int = 50) -> dict:
-    """The device's busy share on the torch search path (device_beam off):
-    summed kernel time from the CUDA profiler over the wall time of a
-    separate profiled run of ``n_queries`` (the profiler's own cost inflates
-    this run's wall time, so the share is a lower bound)."""
-    system = _velo(ds, graph, qb, "torch", False)
-    wall, kernels, copies = _profile(lambda: system.run(ds.queries[:n_queries]))
-    avgs = sorted(kernels + copies, key=lambda e: -e.self_device_time_total)
-    device_s = sum(e.self_device_time_total for e in avgs) / 1e6
-    return dict(queries=n_queries, wall_s=wall, device_s=device_s,
-                busy_share=device_s / wall, kernel_launches=sum(e.count for e in kernels),
-                copies={k: sum(e.count for e in copies if e.key.startswith(k))
-                        for k in ("Memcpy HtoD", "Memcpy DtoH")},
-                top=[[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in avgs[:8]])
+    return dict(build_s=build_s, batch=ref, torch=runs), (ds, graph, qb)
 
 
 # ------------------------------------------------------------------ phase 6

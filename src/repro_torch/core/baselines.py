@@ -25,6 +25,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core import distance as distance_mod
 from repro_torch.core import search as search_mod
 from repro_torch.core.bufferpool import RecordBufferPool
@@ -276,6 +277,9 @@ class System:
         self, queries: np.ndarray, ssd_config: SSDConfig | None = None,
         schedule=None, sla=None,
     ) -> tuple[list, WorkloadStats]:
+        # the span's self time: the scheduler loop, the event heap, read
+        # issue, the SSD model and op dispatch
+        sp = tracing.begin(tracing.ENGINE_RUN) if tracing.on else -1
         ssd = SSD(ssd_config)
         shards = None
         if self.shard_plan is not None:
@@ -325,6 +329,8 @@ class System:
             # lock_waits/coalesced too, but only for ops it scheduled)
             for key, val in pool.pressure_stats().items():
                 setattr(stats, key, val - pressure0[key])
+        if sp >= 0:
+            tracing.end(sp)
         return results, stats
 
     # ---- memory accounting (Table 3) ----

@@ -51,6 +51,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import beam as beam_mod
 from repro_torch.core.quant import (
     PreparedQuery,
@@ -66,6 +67,10 @@ from repro_torch.kernels.int4_dist import int4_dist2
 BACKENDS = ("scalar", "batch", "torch")
 
 _DEFAULT_BACKEND = "torch"
+
+_EXECUTE = tracing.name("distance.execute")
+_H2D = tracing.name("distance.h2d")  # contiguous copy, from_numpy, pageable .to
+_D2H = tracing.name("distance.d2h")  # the wait for queued kernels, the copy back
 
 
 def set_default_backend(name: str) -> None:
@@ -106,6 +111,10 @@ class DistanceStats:
     # per-row distance download)
     beam_steps: int = 0
     beam_rows: int = 0
+    # the torch engine's host <-> device copies: tensors moved to the device
+    # (query stacks, id vectors, beam state) and results moved back
+    h2d_copies: int = 0
+    d2h_copies: int = 0
 
     def dispatches(self) -> int:
         """Total kernel/ufunc dispatches issued by this engine instance."""
@@ -900,7 +909,12 @@ class TorchEngine(BatchEngine):
     # ---- host <-> device ---------------------------------------------------
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        self.stats.h2d_copies += 1
+        sp = tracing.begin(_H2D) if tracing.on else -1
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        if sp >= 0:
+            tracing.end(sp)
+        return t
 
     def _ids(self, ids) -> torch.Tensor:
         return self._put(np.asarray(ids, dtype=np.int64))
@@ -908,9 +922,14 @@ class TorchEngine(BatchEngine):
     def _queries(self, pqs) -> torch.Tensor:
         return self._put(np.stack([pq.qr for pq in pqs]).astype(np.float32, copy=False))
 
-    @staticmethod
-    def _host(t: torch.Tensor) -> np.ndarray:
-        return t.cpu().numpy()
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        # the wait for the kernels queued before it, then the copy back
+        self.stats.d2h_copies += 1
+        sp = tracing.begin(_D2H) if tracing.on else -1
+        out = t.cpu().numpy()
+        if sp >= 0:
+            tracing.end(sp)
+        return out
 
     # ---- resident id-based paths: the kernels gather by id -----------------
 
@@ -984,10 +1003,15 @@ class TorchEngine(BatchEngine):
             return super()._beam_host_view(st)
         # the generic path mutates the masks in place, and on the CPU
         # Tensor.numpy() aliases the tensor: hand it copies, never views
-        return tuple(
+        self.stats.d2h_copies += 4
+        sp = tracing.begin(_D2H) if tracing.on else -1
+        out = tuple(
             t.cpu().numpy().copy()
             for t in (st.cand_d, st.cand_v, st.visited, st.explored)
         )
+        if sp >= 0:
+            tracing.end(sp)
+        return out
 
     def _beam_store(self, st, cand_d, cand_v, visited, explored):
         if st.backend != "device":
@@ -1170,6 +1194,8 @@ def execute_requests(
     registered-table path, and each request's results are merged back in id
     order.  With ``hbm=None`` (the default) the body below is untouched.
     """
+    # the span's self time: grouping, query stacking, slicing results by owner
+    sp = tracing.begin(_EXECUTE) if tracing.on else -1
     out: list = [None] * len(reqs)
     groups: dict[tuple, list[int]] = {}
     for i, r in enumerate(reqs):
@@ -1212,6 +1238,8 @@ def execute_requests(
             raise ValueError(f"unknown score request kind {kind!r}")
         for i, r_ in zip(idxs, res):
             out[i] = r_
+    if sp >= 0:
+        tracing.end(sp)
     return out
 
 

@@ -128,10 +128,13 @@ from collections.abc import Callable
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core import beam as beam_mod
 from repro_torch.core import distance as distance_mod
 from repro_torch.core.scheduling import SCHEDULERS
 from repro_torch.core.sim import SSD, CostModel, WorkloadStats
+
+_SEARCH_STEP = tracing.name("search.step")
 
 
 @dataclasses.dataclass
@@ -772,7 +775,15 @@ class Engine:
 
             while True:
                 try:
-                    op = gen.send(value)
+                    if tracing.on:
+                        # the search coroutine's own Python up to its next op
+                        sp = tracing.begin(_SEARCH_STEP, qid)
+                        try:
+                            op = gen.send(value)
+                        finally:
+                            tracing.end(sp)
+                    else:
+                        op = gen.send(value)
                 except StopIteration as fin:
                     drain_pool_resumes(w.t)  # publishes from this final step
                     results[qid] = fin.value

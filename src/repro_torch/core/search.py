@@ -51,11 +51,17 @@ from bisect import insort
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core import beam as beam_mod
 from repro_torch.core import distance as distance_mod
 from repro_torch.core import sharding as sharding_mod
 from repro_torch.core.quant import RabitQuantizer
 from repro_torch.core.sim import CostModel
+
+# the record accessor's spans: record decode, and the pool's side of loading
+# a page (slot acquisition, the clock sweep, evictions, publishing)
+_DECODE = tracing.name("store.decode")
+_ADMIT = tracing.name("pool.admit")
 
 
 @dataclasses.dataclass
@@ -177,28 +183,56 @@ class RecordAccessor:
         return self.pool.peek_present(vid)
 
     def _admit_from_page(self, vid: int, page: bytes):
+        sp = tracing.begin(_DECODE) if tracing.on else -1
         rec = self.index.decode_record(vid, page)
+        if sp >= 0:
+            tracing.end(sp)
+            sp = tracing.begin(_ADMIT)
         self.pool.admit(vid, rec)
+        if sp >= 0:
+            tracing.end(sp)
         if self.co_admit:
-            for extra in self.index.co_resident_records(vid, page):
+            sp = tracing.begin(_DECODE) if tracing.on else -1
+            extras = self.index.co_resident_records(vid, page)
+            if sp >= 0:
+                tracing.end(sp)
+                sp = tracing.begin(_ADMIT)
+            for extra in extras:
                 self.pool.admit(extra.vid, extra)
+            if sp >= 0:
+                tracing.end(sp)
         return rec
 
     def _publish_from_page(self, vid: int, page: bytes):
         """Close vid's LOCKED window with the decoded record and install its
         co-resident group under one clock interaction."""
+        sp = tracing.begin(_DECODE) if tracing.on else -1
         rec = self.index.decode_record(vid, page)
+        if sp >= 0:
+            tracing.end(sp)
+            sp = tracing.begin(_ADMIT)
         self.pool.finish_load(vid, rec)
+        if sp >= 0:
+            tracing.end(sp)
         if self.co_admit:
+            sp = tracing.begin(_DECODE) if tracing.on else -1
             extras = self.index.co_resident_records(vid, page)
+            if sp >= 0:
+                tracing.end(sp)
+                sp = tracing.begin(_ADMIT) if extras else -1
             if extras:
                 self.pool.admit_group([e.vid for e in extras], extras)
+            if sp >= 0:
+                tracing.end(sp)
         return rec
 
     def _demand_load(self, vid: int):
         """Demand-read vid's page and publish (or sync-admit) its record.
         The access was already counted/tracked by the caller."""
+        sp = tracing.begin(_ADMIT) if tracing.on else -1
         slot = self.pool.begin_load(vid) if self.async_load else -1
+        if sp >= 0:
+            tracing.end(sp)
         pid = self.index.page_of(vid)
         pages = yield ("read", [pid])
         self.reads += 1
@@ -250,10 +284,13 @@ class RecordAccessor:
                 missing.append(v)
         if missing:
             pids = sorted({self.index.page_of(v) for v in missing})
+            sp = tracing.begin(_ADMIT) if tracing.on else -1
             slots = (
                 {v: self.pool.begin_load(v) for v in missing}
                 if self.async_load else {}
             )
+            if sp >= 0:
+                tracing.end(sp)
             pages = yield ("read", pids)
             self.reads += len(pids)
             yield (
@@ -289,8 +326,14 @@ class RecordAccessor:
         interaction here, not in the coroutine, is the layering rule:
         coroutines yield ops and call
         accessors; only accessors touch the pool."""
+        sp = tracing.begin(_DECODE) if tracing.on else -1
         rec = self.index.decode_record(vid, page)
+        if sp >= 0:
+            tracing.end(sp)
+            sp = tracing.begin(_ADMIT)
         self.pool.admit(vid, rec)
+        if sp >= 0:
+            tracing.end(sp)
         return rec
 
     def prefetch_op(self, vid: int):
@@ -303,7 +346,10 @@ class RecordAccessor:
         pid = self.index.page_of(vid)
 
         if self.async_load:
+            sp = tracing.begin(_ADMIT) if tracing.on else -1
             slot = self.pool.begin_load(vid)
+            if sp >= 0:
+                tracing.end(sp)
             if slot >= 0:
                 def on_publish(_pid: int, page: bytes) -> None:
                     self._publish_from_page(vid, page)

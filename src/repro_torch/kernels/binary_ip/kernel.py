@@ -11,13 +11,15 @@ tensor in one pass of plain attributes (``get_device`` gives an int, no
 ``torch.device`` is built), take the raw stream from ``_build.stream``,
 allocate the output with ``torch.empty`` and launch on the current stream
 without synchronising.  Both entries count in ``launches``, and the calls
-that took the tensor-core path also in ``tensor_core_launches``.
+that took the tensor-core path also in ``tensor_core_launches``; with
+``repro_torch.tracing`` on, each call is a ``kernels.launch`` span.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 
 launches = 0  # kernel launches of either entry since the caller last set it to 0
@@ -34,6 +36,7 @@ tensor_core_launches = 0  # of those, the ones on the tensor-core path
 TENSOR_CORE_MIN_ROWS = 8192
 
 _F32, _BF16, _U8, _I64 = torch.float32, torch.bfloat16, torch.uint8, torch.int64
+_LAUNCH = tracing.name("kernels.launch")  # checks, output allocation, the launch
 
 
 def tensor_core_path(B: int, N: int, d: int, codes_ptr: int,
@@ -90,11 +93,14 @@ def binary_ip_cuda(
     ``ids`` is None).  An id outside ``[0, T)`` yields NaN in its column.
     ``tensor_cores`` as in ``tensor_core_path``."""
     global launches, tensor_core_launches
+    sp = tracing.begin(_LAUNCH) if tracing.on else -1
     index, B, d, T, N = _checked(q, codes, ids, ())
     codes_ptr = codes.data_ptr()
     tc = tensor_core_path(B, N, d, codes_ptr, tensor_cores)
     out = torch.empty((B, N), dtype=_F32, device=index)
     if B == 0 or N == 0:
+        if sp >= 0:
+            tracing.end(sp)
         return out
     lib = _build.load()
     err = (lib.binary_ip_f32 if q.dtype is _F32 else lib.binary_ip_bf16)(
@@ -105,6 +111,8 @@ def binary_ip_cuda(
         _build.check("binary_ip", err)
     launches += 1
     tensor_core_launches += tc
+    if sp >= 0:
+        tracing.end(sp)
     return out
 
 
@@ -121,12 +129,15 @@ def estimate_dist2_cuda(
     id outside ``[0, T)`` yields NaN in its column.  ``tensor_cores`` as in
     ``tensor_core_path``."""
     global launches, tensor_core_launches
+    sp = tracing.begin(_LAUNCH) if tracing.on else -1
     index, B, d, T, N = _checked(q, codes, ids, (("norms", norms, _F32, 1),
                                                  ("ip_bar", ip_bar, _F32, 1)))
     codes_ptr = codes.data_ptr()
     tc = tensor_core_path(B, N, d, codes_ptr, tensor_cores)
     out = torch.empty((B, N), dtype=_F32, device=index)
     if B == 0 or N == 0:
+        if sp >= 0:
+            tracing.end(sp)
         return out
     lib = _build.load()
     err = (lib.binary_est_f32 if q.dtype is _F32 else lib.binary_est_bf16)(
@@ -138,4 +149,6 @@ def estimate_dist2_cuda(
         _build.check("binary_ip", err)
     launches += 1
     tensor_core_launches += tc
+    if sp >= 0:
+        tracing.end(sp)
     return out

@@ -9,18 +9,21 @@ before anything else and dequantises algebraically (see the source), and the
 wrapper checks each tensor once, takes the raw stream from ``_build.stream``
 and passes q through without a copy.  It allocates the output with
 ``torch.empty`` and launches on the current stream without synchronising.
+With ``repro_torch.tracing`` on, each call is a ``kernels.launch`` span.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 
 launches = 0  # kernel launches since the caller last set it to 0
 
 
 _F32, _U8, _I64 = torch.float32, torch.uint8, torch.int64
+_LAUNCH = tracing.name("kernels.launch")  # checks, output allocation, the launch
 
 
 def _refuse(name: str, t: torch.Tensor, dtype, ndim: int, index: int) -> ValueError:
@@ -43,6 +46,7 @@ def int4_dist_cuda(
     ``torch.device`` is built): at the search path's shape this call's host
     time, not the kernel, is what a caller waits for."""
     global launches
+    sp = tracing.begin(_LAUNCH) if tracing.on else -1
     index = q.get_device()  # -1 on the CPU
     for name, t, dtype, ndim in (("q", q, _F32, 2), ("codes", codes, _U8, 2),
                                  ("lo", lo, _F32, 1), ("step", step, _F32, 1),
@@ -63,6 +67,8 @@ def int4_dist_cuda(
     N = T if ids is None else ids.shape[0]
     out = torch.empty((B, N), dtype=_F32, device=index)
     if B == 0 or N == 0:
+        if sp >= 0:
+            tracing.end(sp)
         return out
     err = _build.load().int4_dist_f32(
         q.data_ptr(), codes_ptr, lo.data_ptr(), step.data_ptr(),
@@ -72,4 +78,6 @@ def int4_dist_cuda(
     if err:
         _build.check("int4_dist", err)
     launches += 1
+    if sp >= 0:
+        tracing.end(sp)
     return out

@@ -45,6 +45,18 @@ def _fields(obj) -> dict:
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
+# the torch engine's own counters: the reference has no host copies to count
+PORT_ONLY = {"h2d_copies", "d2h_copies"}
+
+
+def _assert_same_counters(port_stats, ref_stats) -> None:
+    """Every DistanceStats counter of the reference equal, and nothing else
+    in the port's but its copy counters."""
+    mine, ref = dataclasses.asdict(port_stats), dataclasses.asdict(ref_stats)
+    assert set(mine) - set(ref) == PORT_ONLY
+    assert {k: v for k, v in mine.items() if k not in PORT_ONLY} == ref
+
+
 @pytest.fixture(scope="module")
 def port_qb(small_qb, small_graph):
     return convert.index_from_reference(_fields(small_qb), _fields(small_graph))[0]
@@ -80,7 +92,7 @@ def test_resident_primitives_match_reference(m, small_qb, port_qb, queries):
     got = eng.refine_ids(port_qb, pq, ids)
     np.testing.assert_allclose(got, pallas.refine_ids(small_qb, rpq, ids), **F32)
     np.testing.assert_allclose(got, batch.refine_ids(small_qb, rpq, ids), **HOST)
-    assert dataclasses.asdict(eng.stats) == dataclasses.asdict(pallas.stats)
+    _assert_same_counters(eng.stats, pallas.stats)
 
 
 def test_fused_many_paths_match_reference(small_qb, port_qb, queries):
@@ -94,7 +106,7 @@ def test_fused_many_paths_match_reference(small_qb, port_qb, queries):
         for g, w in zip(got, want):
             assert g.shape == w.shape
             np.testing.assert_allclose(g, w, **F32)
-    assert dataclasses.asdict(eng.stats) == dataclasses.asdict(pallas.stats)
+    _assert_same_counters(eng.stats, pallas.stats)
     assert eng.stats.fused_calls == 2 and eng.stats.uploads == 1
 
 
@@ -132,7 +144,7 @@ def test_matrix_paths_match_reference_and_count_uploads(small_qb, port_qb, queri
         want = pallas.refine_many(small_qb, [(rpq, *rows), (rpq2, *rows)])
         for g, w in zip(got, want):
             np.testing.assert_allclose(g, w, **F32)
-    assert dataclasses.asdict(eng.stats) == dataclasses.asdict(pallas.stats)
+    _assert_same_counters(eng.stats, pallas.stats)
     assert eng.stats.uploads == 1 + 3 * 3
 
 
@@ -269,7 +281,7 @@ def test_beam_steps_match_reference_fused_step(fused, small_qb, port_qb, queries
         assert np.array_equal(s.cand_v.numpy(), np.asarray(r.cand_v, np.int64))
         assert np.array_equal(s.visited.numpy(), np.asarray(r.visited))
         assert np.array_equal(s.explored.numpy(), np.asarray(r.explored))
-    assert dataclasses.asdict(eng.stats) == dataclasses.asdict(pallas.stats)
+    _assert_same_counters(eng.stats, pallas.stats)
 
 
 def test_beam_host_view_hands_out_copies(port_qb, queries):

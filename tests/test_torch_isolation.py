@@ -58,7 +58,8 @@ NEW_MODULES = ("core.workload", "core.serving", "velo.index", "velo.batch_search
                "models.rwkv", "models.blocks", "models.model", "convert",
                "train.data", "train.optimizer", "train.train_step", "train.checkpoint",
                "launch.train", "launch.elastic", "models.sharding", "launch.mesh",
-               "launch.shapes", "launch.trace_analysis", "launch.dryrun", "launch.roofline")
+               "launch.shapes", "launch.trace_analysis", "launch.dryrun", "launch.roofline",
+               "tracing")
 
 _IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|,|$)|from\s+repro(\.|\s)"
                      r"|import\s+ml_dtypes\b|from\s+ml_dtypes\b)", re.MULTILINE)
