@@ -19,7 +19,10 @@ Phases (each one that fails ends the run with a non-zero exit):
               bf16 and fp32 inputs;
               both at the reduced Yi-6B config's Dh 16, and paged decode at
               granite-20b's group of 48 heads over Dh 128; binary_ip's bf16
-              sweeps at scan_search's chunk and tail (B 8 and 64)
+              sweeps at scan_search's chunk and tail (B 8 and 64);
+              scan_select (the scan's stage-1 chunk epilogue) at B 4096 x
+              32 768 rows, first and mid-scan, B 8 and 64, and the tail,
+              bit for bit against the plain chain
               (fp32 rows bounded at the TF32 peak, the fp32 peak beside it;
               the fp32 and bf16 kernels must show tensor-core instructions
               in cuobjdump -sass).  Max error, kernel,
@@ -41,11 +44,13 @@ Phases (each one that fails ends the run with a non-zero exit):
               within 0.01, scheduler="rr" with a deadline plan equals the
               plan-free run
   7. velo device  the device search plane: batch_search (lockstep beam) and
-              scan_search (binary_ip tensor-core stage 1, stable top-k merges,
-              int4 rerank) on phase 5's index against the port on the CPU,
-              scan_search over phase 4's 1M table (31 binary_ip launches a
-              scan, each held against binary_ip_ref on the scan's own
-              queries and chunk) against use_kernel=False; batch_search must
+              scan_search (binary_ip tensor-core stage 1 and scan_select's
+              running top-C, int4 rerank) on phase 5's index against the port
+              on the CPU, scan_search over phase 4's 1M table (31 binary_ip
+              and 31 scan_select launches a scan, each binary_ip held against
+              binary_ip_ref on the scan's own queries and chunk) against
+              use_kernel=False, ids and distances equal, the full selects
+              counted and 10 calls timed; batch_search must
               take the CPU's steps for every query and its top-10 ids for
               99 % of them; recall@10 against exact top-10 (an fp32 matmul),
               CUDA-event times, a profiled kernel split
@@ -167,6 +172,8 @@ from repro_torch.kernels.int4_dist import ref as i4_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pa_kernel  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
+from repro_torch.kernels.scan_select import kernel as sel_kernel  # noqa: E402
+from repro_torch.kernels.scan_select import ref as sel_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
@@ -236,6 +243,7 @@ HOST_TOL = dict(rtol=2e-3, atol=2e-3)
 # of the row whose times the report carries (binary_ip's: the fused
 # estimate, which is what the search path launches)
 SIFT1M_FLUSH = dict(shape="B=8 N=256 d=128 table=1000000 gathered", dtype="float32")
+SCAN_SELECT_MAIN = "B=4096 L=32768 C=64 mid-scan"
 LM_FLASH_SHAPE = "yi-6b lm serve prefill B=4 S=2048"
 TRAIN_FLASH_SHAPE = "tinyllama-1.1b lm train B=4 S=2048"
 TINYLLAMA = dict(H=32, KVH=4, Dh=64)  # src/repro/configs/tinyllama_1_1b.py
@@ -252,6 +260,12 @@ KERNELS = {
                       counter=i4_kernel,
                       paths=("search", "serving plane", "verify", "examples"),
                       main=SIFT1M_FLUSH),
+    # scan_search's stage-1 chunk epilogue at the benchmark's shape, mid-scan
+    "scan_select": dict(source="src/repro_torch/csrc/scan_select.cu",
+                        replaces="none (src/repro/velo/scan_search.py:91-103, XLA ops and "
+                                 "lax.top_k)",
+                        counter=sel_kernel, paths=("velo device", "examples"),
+                        main=dict(shape=SCAN_SELECT_MAIN, dtype="float32")),
     # a decode step of 8 sequences x 2048 tokens, bf16 pages
     "paged_attention": dict(source="src/repro_torch/csrc/paged_attention.cu",
                             replaces="src/repro/kernels/paged_attention/kernel.py:29",
@@ -518,6 +532,55 @@ def check_int4_dist(dev, gen, B, N, d, T, gather) -> dict:
     )
 
 
+def check_scan_select(dev, gen, B: int, L: int, C: int, mid: bool) -> dict:
+    """One scan_select row: a chunk of L rows for B bf16 unit queries at d =
+    128 (codes, norms and ip_bar from the seed), from the first carry (the
+    full select of every row) or from the carry of a chunk before it (the
+    filter), held bit for bit against the plain chain on the same product.
+    The bound counts the bytes once: the (B, L) fp32 product, the chunk's
+    10 bytes a row of tables, the queries' 4 bytes and the carry in and
+    out."""
+    d = 128
+    codes = torch.randint(0, 256, (2 * L, d // 8), generator=gen, device=dev, dtype=torch.uint8)
+    norms = torch.rand(2 * L, generator=gen, device=dev) * 2 + 0.25
+    ipb = torch.rand(2 * L, generator=gen, device=dev) * 0.9 + 0.05
+    q = torch.randn(B, d, generator=gen, device=dev)
+    q = (q / torch.linalg.vector_norm(q, dim=1, keepdim=True)).to(torch.bfloat16)
+    qnorm = torch.rand(B, 1, generator=gen, device=dev) * 1.5 + 0.5
+    carry = (torch.full((B, C), 3e38, dtype=torch.bfloat16, device=dev),
+             torch.zeros((B, C), dtype=torch.int64, device=dev))
+    lo = L if mid else 0
+    if mid:
+        carry = sel_ref.scan_select_ref(bip_ops.binary_ip(q, codes[:L]), qnorm, norms[:L],
+                                        ipb[:L], d, C, 0, carry)
+    g = bip_ops.binary_ip(q, codes[lo:lo + L])
+    qtab, rtab, ipt = sel_kernel.tables(qnorm, norms, ipb)
+    rows = slice(lo, lo + L)
+
+    def kernel():
+        return sel_kernel.scan_select_cuda(g, qtab, rtab[rows], ipt[rows], d, C, lo, carry)
+
+    def plain():
+        return sel_ref.scan_select_ref(g, qnorm, norms[rows], ipb[rows], d, C, lo, carry)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    shape = f"B={B} L={L} C={C} {'mid-scan' if mid else 'first chunk'}"
+    same = torch.equal(got[1], want[1]) and torch.equal(got[0].view(torch.int16),
+                                                        want[0].view(torch.int16))
+    require(same, f"scan_select disagrees with its plain version at {shape}")
+    nbytes = B * L * 4 + L * 10 + B * 4 + 2 * B * C * 10
+    b_ms, b_by = bound_ms(nbytes, 11 * B * L)
+    return dict(
+        kernel="scan_select", entry="scan_select", path="filter" if mid else "full select",
+        shape=shape, B=B, N=L, d=d, table=2 * L, dtype="float32",
+        max_abs_err=float((got[0].float() - want[0].float()).abs().nan_to_num().max()),
+        ms=time_ms(kernel), plain_ms=time_ms(plain), library_ms=None,
+        device_us=device_us(kernel), plain_device_us=device_us(plain),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, earlier_ms=None,
+    )
+
+
 def _us(x: float | None) -> str:
     return "n/m" if x is None else f"{x:.2f}"
 
@@ -569,7 +632,17 @@ def phase_kernels(dev) -> list[dict]:
             print(f"  binary_ip {r['entry']} {r['shape']} {r['dtype']}: bound {r['bound_ms']:.6f} "
                   f"ms ({r['bound_by']}) at the bf16 tensor-core peak, "
                   f"{r['bound_fp32_ms']:.6f} ms at the fp32 (CUDA-core) peak")
-    return rows
+    # scan_search's stage-1 epilogue: the benchmark's chunk (first and mid-scan),
+    # phase 7's B 8 and 64, and the 1M table's 16 960-row tail
+    sel = [check_scan_select(dev, gen, 4096, 32_768, 64, False),
+           check_scan_select(dev, gen, 4096, 32_768, 64, True)]
+    sel += [check_scan_select(dev, gen, B, 32_768, 64, True) for B in (8, 64)]
+    sel.append(check_scan_select(dev, gen, 64, 16_960, 64, True))
+    for r in sel:
+        print(f"scan_select {r['path']:11} {r['shape']:34} equal  ms {r['ms']:.5f} "
+              f"plain_ms {r['plain_ms']:.5f} bound_ms {r['bound_ms']:.6f} ({r['bound_by']}) "
+              f"dev_us {_us(r['device_us'])} pl_dev_us {_us(r['plain_device_us'])}")
+    return rows + sel
 
 
 def _check(kernel: str, shape: str, dtype, got, want, lib_out) -> tuple[float, float]:
@@ -1126,17 +1199,25 @@ def phase_velo_device(dev, ds, graph, qb, qb1m, base1m, card: str) -> dict:
     chunks = -(-len(base1m) // scan_search.DEFAULT_CHUNK)
     for B in (8, 64):
         q = torch.from_numpy(q1m[:B])
+        n_sel = sel_kernel.launches
+        sel_kernel.reset_full_select_rows()
         (ids, d2), ev_ms, wall_s = _event_call(lambda: scan_search.scan_search(idx1m, q, k=k))
         launched = bip_kernel.launches - n_launch
-        require(launched == chunks, f"velo device: a 1M scan is {chunks} binary_ip launches, "
-                f"got {launched}")
+        require(launched == chunks and sel_kernel.launches - n_sel == chunks,
+                f"velo device: a 1M scan is {chunks} binary_ip and scan_select launches, got "
+                f"{launched} and {sel_kernel.launches - n_sel}")
         require(bool(torch.isfinite(d2).all()), "velo device: 1M scan distances")
+        full_rows = sel_kernel.full_select_rows()
         n_launch = bip_kernel.launches
-        (want_ids, _), plain_ms, _ = _event_call(
+        (want_ids, want_d2), plain_ms, _ = _event_call(
             lambda: scan_search.scan_search(idx1m, q, k=k, use_kernel=False))
         r = record("scan_search 1M", B, ids, want_ids, ev_ms, wall_s, launched, exact1m[:B],
                    "use_kernel=False")
-        r["plain_device_ms"] = plain_ms
+        # the card's stage 1 picks the plain chain's candidates: the same answer
+        require(torch.equal(ids, want_ids) and torch.equal(d2, want_d2),
+                f"velo device: the 1M scan at B={B} differs from use_kernel=False")
+        r.update(plain_device_ms=plain_ms, full_select_rows=full_rows,
+                 call_ms=host_ms(lambda: scan_search.scan_search(idx1m, q, k=k), reps=10))
         n_launch = bip_kernel.launches
     out["launches"] = read_launches()
     out["chunk_check"] = [check_scan_chunks(idx1m, torch.from_numpy(q1m[:B])) for B in (8, 64)]

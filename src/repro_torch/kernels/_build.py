@@ -49,6 +49,9 @@ SIGNATURES = {
     "binary_est_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _I, _I, _P),
     # q, codes, lo, step, ids, out, B, N, d, n_table, device, stream
     "int4_dist_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _I, _P),
+    # g, qtab, rtab, ipb, carry_vals, carry_ids, out_vals, out_ids, full_rows, B, L, C, row0,
+    # inv, device, stream
+    "scan_select_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _F, _I, _P),
     "paged_attention_f32": _PAGED,
     "paged_attention_bf16": _PAGED,
     "flash_attention_f32": _FLASH,

@@ -23,27 +23,26 @@ lower-index order while ``torch.topk`` promises no order.  So every top-k
 here is a stable ascending sort of the distances followed by a cut
 (``smallest``): the candidate set, and the order in which the carry and a
 chunk are concatenated, are exactly the reference's.
+
+On the card, after each chunk's ``binary_ip`` launch, the estimator and the
+running top-C are one ``scan_select`` launch that reads the product once
+and writes only the new (B, C) carry, bit for bit the plain chain's
+(``kernels/scan_select``); CPU tensors, and ``use_kernel=False``, take the
+plain chain.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 
 from repro_torch.kernels.binary_ip.ops import binary_ip
 from repro_torch.kernels.binary_ip.ref import binary_ip_ref
+from repro_torch.kernels.scan_select import kernel as select_kernel
+from repro_torch.kernels.scan_select.ref import estimate, merge, smallest
 from repro_torch.velo.batch_search import _prepare_queries
 from repro_torch.velo.index import DeviceIndex
 
 DEFAULT_CHUNK = 32768
-
-
-def smallest(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The k smallest values of each row and their column indices, equal
-    values in lower-index order (``jax.lax.top_k(-x, k)``'s selection)."""
-    order = torch.argsort(x, dim=1, stable=True)[:, :k]
-    return torch.gather(x, 1, order), order
 
 
 def stage1_block(qunit: torch.Tensor, qnorm: torch.Tensor, codes_blk: torch.Tensor,
@@ -53,15 +52,34 @@ def stage1_block(qunit: torch.Tensor, qnorm: torch.Tensor, codes_blk: torch.Tens
     product of the bf16 unit queries is ``binary_ip`` (the kernel on the
     card, its plain version on the CPU; ``use_kernel=False`` asks for the
     plain version everywhere)."""
-    d = qunit.shape[1]
     qb16 = qunit.to(torch.bfloat16)
     g = binary_ip(qb16, codes_blk) if use_kernel else binary_ip_ref(qb16, codes_blk)
-    g = (g / math.sqrt(d)).to(torch.bfloat16)
-    ipb = torch.clamp_min(ipb_blk[None, :], 1e-6).to(torch.bfloat16)
-    est_cos = torch.clamp(g / ipb, -1.0, 1.0)
-    nr = norms_blk[None, :].to(torch.bfloat16)
-    qn = qnorm.to(torch.bfloat16)
-    return qn**2 + nr**2 - 2.0 * qn * nr * est_cos
+    return estimate(g, qnorm, norms_blk, ipb_blk, qunit.shape[1])
+
+
+def _stage1_card(index: DeviceIndex, qunit: torch.Tensor, qnorm: torch.Tensor, C: int,
+                 chunk: int) -> torch.Tensor:
+    """Stage 1 on the card: per chunk one ``binary_ip`` launch and one
+    ``scan_select`` launch; -> the (B, C) candidate ids.  The first chunk's
+    product is launched before the operand tables are made, so that the
+    card works while the host enqueues them."""
+    codes = index.binary_codes[:-1]
+    n, d = codes.shape[0], qunit.shape[1]
+    qb16 = qunit.to(torch.bfloat16)
+    g = binary_ip(qb16, codes[:chunk])
+    qtab, rtab, ipb = select_kernel.tables(qnorm, index.norms[:n], index.ip_bar[:n])
+    if n <= chunk:
+        return select_kernel.scan_select_cuda(g, qtab, rtab, ipb, d, C)[1]
+    B = qunit.shape[0]
+    # the carry starts at bf16(3e38) with ids 0, as the reference's
+    carry = (torch.full((B, C), 3e38, dtype=torch.bfloat16, device=index.device),
+             torch.zeros((B, C), dtype=torch.int64, device=index.device))
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        if lo:
+            g = binary_ip(qb16, codes[lo:hi])
+        carry = select_kernel.scan_select_cuda(g, qtab, rtab[lo:hi], ipb[lo:hi], d, C, lo, carry)
+    return carry[1]
 
 
 def scan_search(
@@ -86,7 +104,9 @@ def scan_search(
         return stage1_block(qunit, qnorm, codes[lo:hi], index.norms[lo:hi],
                             index.ip_bar[lo:hi], use_kernel)
 
-    if n <= chunk:
+    if use_kernel and codes.is_cuda and B > 0 and C > 0:
+        cand = _stage1_card(index, qunit, qnorm, C, chunk)
+    elif n <= chunk:
         _, cand = smallest(block(0, n), C)
     else:
         nb = n // chunk
@@ -97,17 +117,10 @@ def scan_search(
         for bi in range(nb):
             # top-C of the chunk first, then a 2C merge with the carry
             dc, selc = smallest(block(bi * chunk, (bi + 1) * chunk), C)
-            all_d = torch.cat([best_d, dc], dim=1)              # (B, 2C)
-            all_i = torch.cat([best_i, bi * chunk + selc], dim=1)
-            best_d, sel = smallest(all_d, C)
-            best_i = torch.gather(all_i, 1, sel)
+            best_d, best_i = merge(best_d, best_i, dc, bi * chunk + selc, C)
         if tail:
-            est = block(nb * chunk, n)
             ids = nb * chunk + torch.arange(tail, device=dev)[None, :]
-            all_d = torch.cat([best_d, est], dim=1)
-            all_i = torch.cat([best_i, ids.expand(B, tail)], dim=1)
-            best_d, sel = smallest(all_d, C)
-            best_i = torch.gather(all_i, 1, sel)
+            best_d, best_i = merge(best_d, best_i, block(nb * chunk, n), ids.expand(B, tail), C)
         cand = best_i
 
     # ---- stage 2: gather top-C, int4 refine

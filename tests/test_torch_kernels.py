@@ -1,4 +1,5 @@
-"""The port's binary_ip / int4_dist kernels against the JAX package.
+"""The port's binary_ip / int4_dist / scan_select kernels against the JAX
+package and their plain versions.
 
 On the CPU the port's wrappers run their plain PyTorch versions; those are
 held against the JAX ops (Pallas in interpret mode) and the JAX refs on the
@@ -25,6 +26,9 @@ from repro_torch.kernels.binary_ip.ref import binary_ip_ref, estimate_dist2_ref
 from repro_torch.kernels.int4_dist import int4_dist2
 from repro_torch.kernels.int4_dist import kernel as i4_kernel
 from repro_torch.kernels.int4_dist.ref import int4_dist2_ref, unpack_nibbles
+from repro_torch.kernels.scan_select import kernel as sel_kernel
+from repro_torch.kernels.scan_select import ops as sel_ops
+from repro_torch.kernels.scan_select import ref as sel_ref
 
 BIP_SHAPES = [(1, 1, 8), (4, 10, 64), (128, 256, 128), (33, 777, 256),
               (5, 64, 1024), (8, 256, 960)]
@@ -453,6 +457,47 @@ def test_wrappers_refuse_cpu_tensors():
     assert (bip_kernel.launches, i4_kernel.launches) == (b0, i0)
 
 
+def test_scan_select_wrapper_refuses_what_it_does_not_take():
+    """scan_select launches only on the card: CPU tensors, and a g that is
+    not (B, L), raise before anything is built or counted."""
+    g = torch.zeros(4, 40)
+    qtab, rtab, ipb = sel_kernel.tables(torch.ones(4, 1), torch.ones(40), torch.ones(40) * 0.5)
+    assert qtab.shape == (4, 2) and rtab.shape == (40, 2) and ipb.shape == (40,)
+    assert rtab.dtype == torch.int32 and bool((rtab[:, 0].view(torch.float32) == 2.0).all())
+    carry = (torch.zeros(4, 8, dtype=torch.bfloat16), torch.zeros(4, 8, dtype=torch.int64))
+    n0 = sel_kernel.launches
+    for args in ((g, qtab, rtab, ipb, 64, 8), (g, qtab, rtab, ipb, 64, 8, 40, carry),
+                 (g[0], qtab, rtab, ipb, 64, 8), (g.to(torch.float64), qtab, rtab, ipb, 64, 8)):
+        with pytest.raises(ValueError):
+            sel_kernel.scan_select_cuda(*args)
+    assert sel_kernel.launches == n0
+
+
+def test_scan_select_plain_is_the_scan_chain(small_ds, small_qb):
+    """On the CPU ``scan_select`` is the plain chain that scan_search runs:
+    chunk by chunk from the first carry it keeps the C smallest level-1
+    estimates of the whole table by (value, row), which one stable sort of
+    every estimate also picks."""
+    from repro_torch.velo.scan_search import smallest, stage1_block
+
+    n, d, C, L = small_qb.norms.shape[0], small_ds.dim, 48, 256
+    q = torch.from_numpy(small_ds.queries[:9])
+    rot, cen = torch.from_numpy(small_qb.rotation), torch.from_numpy(small_qb.centroid)
+    qr = (q - cen[None, :]) @ rot.T
+    qnorm = torch.linalg.vector_norm(qr, dim=1, keepdim=True)
+    qunit = qr / torch.clamp_min(qnorm, 1e-12)
+    codes, norms, ipb = (torch.from_numpy(a) for a in (small_qb.binary_codes, small_qb.norms,
+                                                      small_qb.ip_bar))
+    carry = (torch.full((9, C), 3e38, dtype=torch.bfloat16), torch.zeros((9, C), dtype=torch.int64))
+    for lo in range(0, n, L):
+        hi = min(lo + L, n)
+        g = binary_ip(qunit.to(torch.bfloat16), codes[lo:hi])
+        carry = sel_ops.scan_select(g, qnorm, norms[lo:hi], ipb[lo:hi], d, C, lo, carry)
+    want_d, want_i = smallest(stage1_block(qunit, qnorm, codes, norms, ipb), C)
+    assert torch.equal(carry[1], want_i)
+    assert torch.equal(carry[0].view(torch.int16), want_d.view(torch.int16))
+
+
 def test_tensor_core_path_rule():
     """Calls of two queries or more over TENSOR_CORE_MIN_ROWS rows or more
     take the tensor-core path where d % 32 == 0 and the codes are 4-byte
@@ -721,3 +766,203 @@ def test_estimate_dist2_is_one_kernel(cuda, bip_tables):
     kernels = {e.key: e.count for e in prof.key_averages()
                if e.self_device_time_total > 0 and not e.key.startswith(("Memcpy", "Memset"))}
     assert sum(kernels.values()) == 1 and "binary_lanes_kernel" in next(iter(kernels)), kernels
+
+
+# scan_select: the card's carry against the plain chain's, bit for bit, after
+# every chunk of a three-chunk scan from the first carry (so chunks two and
+# three start from a carry of mid-scan), and without a carry where L >= C.
+# The products g: binary_ip of unit queries over the test tables; rows of
+# 1, 4 or 16 levels (with one norm and one ip_bar, every estimate of a level
+# ties); estimates of exactly 0 and near it (and -0 put into the carry);
+# NaN, inf and tiny products, and ip_bar of 2e38 and inf.
+SEL_SOURCES = ("binary_ip", "levels 1", "levels 4", "levels 16", "zeros", "nan")
+SEL_B, SEL_C, SEL_L = (1, 8, 64, 4096), (32, 64, 96), (32_768, 500, 333, 1)
+
+
+def _select_inputs(source, B, L, dev, bip_tables):
+    """(g (3, B, L) fp32, qnorm (B, 1), norms (3L,), ip_bar (3L,)), seeded."""
+    d = 128
+    gen = torch.Generator(device=dev).manual_seed(B * 7 + L)
+    n = 3 * L
+    if source in ("binary_ip", "nan"):
+        codes, norms, ipb = (t[:n] for t in bip_tables(d, dev))
+        q = torch.randn(B, d, generator=gen, device=dev)
+        q = (q / torch.linalg.vector_norm(q, dim=1, keepdim=True)).to(torch.bfloat16)
+        g = torch.stack([binary_ip(q, codes[i * L:(i + 1) * L]) for i in range(3)])
+        qnorm = torch.rand(B, 1, generator=gen, device=dev) * 1.5 + 0.5
+        if source == "nan":  # and quotients that the kernel must take by IEEE division
+            pick = torch.rand(g.shape, generator=gen, device=dev)
+            g[pick < 0.05] = float("nan")
+            g[(pick >= 0.05) & (pick < 0.06)] = float("inf")
+            g[(pick >= 0.06) & (pick < 0.07)] = float("-inf")
+            g[(pick >= 0.07) & (pick < 0.08)] = 3e-33
+            ipb = ipb.clone()
+            ipb[::7] = 2e38
+            ipb[::11] = float("inf")
+        return g, qnorm, norms, ipb
+    ones = torch.ones(n, device=dev)
+    if source == "zeros":  # cosines of 1 and beyond clip to an estimate of exactly 0
+        levels = torch.tensor([1.0, 1.5, 0.99609375, 0.98, 1.0], device=dev)
+        ipb = ones
+    else:
+        levels = torch.linspace(-0.6, 0.6, int(source.split()[1]), device=dev)
+        ipb = ones * 0.8
+    pick = torch.randint(0, len(levels), (3, B, L), generator=gen, device=dev)
+    g = levels[pick] * float(np.sqrt(d))
+    return g.contiguous(), torch.ones(B, 1, device=dev), ones, ipb
+
+
+def _same_carry(got, want, where):
+    assert torch.equal(got[1], want[1]), f"ids differ {where}"
+    assert torch.equal(got[0].view(torch.int16), want[0].view(torch.int16)), \
+        f"values differ {where}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", SEL_L)
+@pytest.mark.parametrize("C", SEL_C)
+@pytest.mark.parametrize("B", SEL_B)
+@pytest.mark.parametrize("source", SEL_SOURCES)
+def test_scan_select_kernel_matches_plain(source, B, C, L, cuda, bip_tables):
+    d = 128
+    g, qnorm, norms, ipb = _select_inputs(source, B, L, cuda, bip_tables)
+    qtab, rtab, ipt = sel_kernel.tables(qnorm, norms, ipb)
+    n0 = sel_kernel.launches
+    if L >= C:
+        got = sel_kernel.scan_select_cuda(g[0], qtab, rtab[:L], ipt[:L], d, C)
+        want = sel_ref.scan_select_ref(g[0], qnorm, norms[:L], ipb[:L], d, C)
+        _same_carry(got, want, "without a carry")
+    carry = (torch.full((B, C), 3e38, dtype=torch.bfloat16, device=cuda),
+             torch.zeros((B, C), dtype=torch.int64, device=cuda))
+    for i in range(3):
+        lo = i * L
+        got = sel_kernel.scan_select_cuda(g[i], qtab, rtab[lo:lo + L], ipt[lo:lo + L], d, C, lo,
+                                          carry)
+        want = sel_ref.scan_select_ref(g[i], qnorm, norms[lo:lo + L], ipb[lo:lo + L], d, C, lo,
+                                       carry)
+        _same_carry(got, want, f"after chunk {i}")
+        carry = want
+        if source == "zeros":  # -0 equals +0: flip every other zero of the carry to -0
+            bits = carry[0].view(torch.int16).clone()
+            flip = (bits == 0) & (torch.arange(C, device=cuda)[None, :] % 2 == 0)
+            bits[flip] = -32768
+            carry = (bits.view(torch.bfloat16), carry[1])
+    assert sel_kernel.launches == n0 + 3 + (L >= C)
+
+
+@pytest.mark.cuda
+def test_scan_select_kernel_refuses_what_it_does_not_take(cuda):
+    g = torch.zeros(4, 40, device=cuda)
+    qtab, rtab, ipb = sel_kernel.tables(torch.ones(4, 1, device=cuda), torch.ones(40, device=cuda),
+                                        torch.ones(40, device=cuda))
+    carry = (torch.zeros(4, 8, dtype=torch.bfloat16, device=cuda),
+             torch.zeros(4, 8, dtype=torch.int64, device=cuda))
+    n0 = sel_kernel.launches
+    for args in ((g, qtab, rtab, ipb, 64, 41), (g, qtab, rtab, ipb, 64, 0),
+                 (g, qtab, rtab, ipb, 64, sel_kernel.MAX_C + 1, 0, carry),
+                 (g, qtab, rtab[:39], ipb, 64, 8), (g, qtab, rtab, ipb[:39], 64, 8),
+                 (g, qtab.float(), rtab, ipb, 64, 8), (g[:, ::2], qtab, rtab[:20], ipb[:20], 64, 8),
+                 (g, qtab, rtab, ipb, 64, 9, 0, carry),
+                 (g, qtab, rtab, ipb, 64, 8, (1 << 32) - 39, carry),
+                 (g, qtab, rtab.cpu(), ipb, 64, 8)):
+        with pytest.raises(ValueError):
+            sel_kernel.scan_select_cuda(*args)
+    assert sel_kernel.launches == n0
+
+
+@pytest.mark.cuda
+def test_scan_select_counts_full_selects(cuda, bip_tables):
+    """The first chunk takes the full select in every row; later chunks of
+    i.i.d. estimates keep their few survivors in the filter's buffer."""
+    B, C, L, d = 64, 64, 32_768, 128
+    g, qnorm, norms, ipb = _select_inputs("binary_ip", B, L, cuda, bip_tables)
+    qtab, rtab, ipt = sel_kernel.tables(qnorm, norms, ipb)
+    carry = (torch.full((B, C), 3e38, dtype=torch.bfloat16, device=cuda),
+             torch.zeros((B, C), dtype=torch.int64, device=cuda))
+    sel_kernel.reset_full_select_rows()
+    carry = sel_kernel.scan_select_cuda(g[0], qtab, rtab[:L], ipt[:L], d, C, 0, carry)
+    assert sel_kernel.full_select_rows() == B
+    for i in (1, 2):
+        rows = slice(i * L, (i + 1) * L)
+        carry = sel_kernel.scan_select_cuda(g[i], qtab, rtab[rows], ipt[rows], d, C, i * L, carry)
+    assert B <= sel_kernel.full_select_rows() <= B + 1
+
+
+@pytest.fixture(scope="module")
+def scan_index(small_qb):
+    """The small quantized table as a velo DeviceIndex (an empty graph: a
+    scan reads none), made on first use on the device asked for."""
+    import types
+
+    from repro_torch.velo import index as velo_index
+
+    made = {}
+
+    def get(dev):
+        if dev not in made:
+            empty = types.SimpleNamespace(
+                adjacency=np.full((small_qb.norms.shape[0], 4), -1, np.int32), medoid=0)
+            made[dev] = velo_index.from_host(small_qb, empty, device=dev)
+        return made[dev]
+
+    return get
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,rerank", [(32_768, 64), (500, 64), (512, 96), (256, 32)])
+def test_scan_search_card_matches_plain_chain(chunk, rerank, cuda, small_ds, scan_index):
+    """scan_search on the card (binary_ip and scan_select a chunk) returns
+    the ids and distances of its plain chain (use_kernel=False) on the card,
+    at the chunks of the CPU tests against the reference: one chunk,
+    chunks, chunks and a tail."""
+    from repro_torch.velo import scan_search as ss
+
+    idx = scan_index(cuda)
+    q = torch.from_numpy(small_ds.queries)
+    n = idx.n
+    n0 = sel_kernel.launches
+    ids, d2 = ss.scan_search(idx, q, k=10, rerank=rerank, chunk=chunk)
+    assert sel_kernel.launches == n0 + -(-n // chunk)
+    want_ids, want_d2 = ss.scan_search(idx, q, k=10, rerank=rerank, chunk=chunk,
+                                       use_kernel=False)
+    assert torch.equal(ids, want_ids) and torch.equal(d2, want_d2)
+
+
+@pytest.mark.cuda
+def test_scan_search_stage1_runs_no_sort(cuda, small_ds, scan_index):
+    """On the card stage 1 calls no library sort and no topk: a scan of six
+    chunks runs as many sort kernels as stage 2's one stable sort of the
+    (B, C) refined distances alone, six scan_select launches and six
+    binary_ip launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.velo import scan_search as ss
+
+    idx = scan_index(cuda)
+    q = torch.from_numpy(small_ds.queries)
+    B, C = q.shape[0], 64
+
+    def kernels(fn):
+        """The kernels of one call of fn; the profiler sometimes loses the
+        records of a profiled run, so an empty reading is taken again."""
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            got = {e.key: e.count for e in prof.key_averages() if e.self_device_time_total > 0}
+            if got:
+                return got
+        return got
+
+    def sorts(ks):
+        return sum(c for k, c in ks.items()
+                   if any(p in k.lower() for p in ("sort", "fill_reverse", "fill_index", "topk")))
+
+    scan = kernels(lambda: ss.scan_search(idx, q, k=10, rerank=C, chunk=256))
+    alone = kernels(lambda: ss.smallest(torch.rand(B, C, device=cuda), 10))
+    assert sorts(scan) == sorts(alone) > 0, (scan, alone)
+    assert sum(c for k, c in scan.items() if "scan_select_kernel" in k) == 6, scan
+    assert sum(c for k, c in scan.items()
+               if "binary_lanes_kernel" in k or "binary_mma_kernel" in k) == 6, scan
