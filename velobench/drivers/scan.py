@@ -1,12 +1,13 @@
 """The on-card scan: ``velo.scan_search.scan_search`` on a
 ``velo.index.DeviceIndex``.
 
-Set-up generates the deployment's rows from the seed (``data.inputs``),
-encodes them with the port's ``RabitQuantizer.fit_encode`` (the seed's
-rotation) and moves the index to the card
-with ``from_host``.  Scan mode reads no adjacency, so the index carries an empty
-graph of the published degree (every entry the padding id), not a host
-build that would take hours at a million rows.  A call is one
+Set-up generates the deployment's rows (``data.inputs``: from the
+configuration's ``data_seed`` where it names one, with the pool in an order
+drawn from the run's seed), encodes them with the port's
+``RabitQuantizer.fit_encode`` (the same seed's rotation) and moves the index
+to the card with ``from_host``.  Scan mode reads no adjacency, so the index
+carries an empty graph of the published degree (every entry the padding id),
+not a host build that would take hours at a million rows.  A call is one
 ``scan_search`` of the next ``batch`` queries of the pool, cycling
 through it, handed over from the host; the call ends with a synchronise, and
 its time is the latency of each of its queries.
@@ -40,7 +41,8 @@ class Driver:
         self.base, self.pool = data.inputs(cfg, traffic, seed)
         if self.B > len(self.pool):
             raise ValueError(f"batch {self.B} exceeds the pool of {len(self.pool)} queries")
-        qb = RabitQuantizer(cfg["d"], seed=seed).fit_encode(self.base)
+        self.index_seed = data.index_seed(cfg, seed)
+        qb = RabitQuantizer(cfg["d"], seed=self.index_seed).fit_encode(self.base)
         empty = types.SimpleNamespace(
             adjacency=np.full((cfg["n"], cfg["R"]), -1, dtype=np.int32), medoid=0)
         self.index = velo_index.from_host(qb, empty, device=self.device)
@@ -116,7 +118,7 @@ class Driver:
 
     def judge(self, ans: dict, device, control: bool = False) -> dict:
         c = self.cfg
-        enc = rabitq.encode(self.base, self.seed)
+        enc = rabitq.encode(self.base, self.index_seed)
         t = scan_ref.ScanTables(enc, device)
         uniq, first, inv = np.unique(ans["qidx"], return_index=True, return_inverse=True)
         ids, dists = ans["ids"], ans["dists"]

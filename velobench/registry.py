@@ -66,10 +66,15 @@ def driver(name: str, here: Path | None = None):
 
 def metric(name: str, here: Path | None = None):
     """``metrics/<name>.py``: a module with ``UNIT``, ``BETTER`` and
-    ``read(run) -> float | None``.  A quantity split by the kind of cell
-    (``qps.engine``, ``qps.scan``: one bound each) is read by the
-    quantity's file (``metrics/qps.py``) unless the split name has its
-    own."""
+    ``read(run) -> float | None``.  A quantity split by bound class
+    (``qps.engine``, ``qps.scan``, ``qps.smallbatch``: one bound each) is
+    read by the quantity's file (``metrics/qps.py``) unless the split name
+    has its own.  A cell's class is the suffix X that its end-to-end
+    metrics share, ``{qps.X, p95_ms.X, recall_at_10.X, setup_s}``, as
+    ``BENCHMARK.json``'s ``workloads`` lists give them, whatever its
+    driver's file is called; every per-layer metric of the cell moves
+    ``qps.X``.  A deployment with a driver of its own joins a class by
+    being listed under its metrics."""
     own = (here or HERE) / "metrics" / f"{check_name(name)}.py"
     if own.is_file() or "." not in name:
         return _module("metrics", name, here)

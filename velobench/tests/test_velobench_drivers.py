@@ -63,20 +63,24 @@ def test_engine_cache_key_follows_the_build_source(monkeypatch):
 
 
 def test_the_seed_makes_the_data():
-    # the scan draws its rows from the seed
+    # a configuration without a data_seed draws its rows from the seed
     c, cfg = tiny.cell(tiny.SCAN)
+    cfg = {k: v for k, v in cfg.items() if k != "data_seed"}
+    assert data.index_seed(cfg, 2**31 + 5) == 2**31 + 5
     a, qa = data.inputs(cfg, c["traffic"], 1)
     b, qb = data.inputs(cfg, c["traffic"], 2**31 + 5)
     assert a.shape == b.shape and qa.shape == qb.shape and not np.allclose(a, b)
     a2, qa2 = data.inputs(cfg, c["traffic"], 1)
     assert (a2 == a).all() and (qa2 == qa).all()
-    # the engine serves one index from its data_seed; the seed orders the pool
-    c, cfg = tiny.cell(tiny.ENGINE)
-    assert "data_seed" in cfg and data.index_seed(cfg, 1) == cfg["data_seed"]
-    a, qa = data.inputs(cfg, c["traffic"], 1)
-    b, qb = data.inputs(cfg, c["traffic"], 2**31 + 5)
-    assert (a == b).all() and not (qa == qb).all()
-    order = lambda q: np.lexsort(q.T[::-1])  # noqa: E731
-    assert (qa[order(qa)] == qb[order(qb)]).all()
-    a2, qa2 = data.inputs(cfg, c["traffic"], 1)
-    assert (a2 == a).all() and (qa2 == qa).all()
+    # the engine and the scan each serve one index from their data_seed; the
+    # seed orders the pool
+    for name in (tiny.ENGINE, tiny.SCAN):
+        c, cfg = tiny.cell(name)
+        assert "data_seed" in cfg and data.index_seed(cfg, 1) == cfg["data_seed"]
+        a, qa = data.inputs(cfg, c["traffic"], 1)
+        b, qb = data.inputs(cfg, c["traffic"], 2**31 + 5)
+        assert (a == b).all() and not (qa == qb).all()
+        order = lambda q: np.lexsort(q.T[::-1])  # noqa: E731
+        assert (qa[order(qa)] == qb[order(qb)]).all()
+        a2, qa2 = data.inputs(cfg, c["traffic"], 1)
+        assert (a2 == a).all() and (qa2 == qa).all()

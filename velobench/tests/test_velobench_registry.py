@@ -1,11 +1,13 @@
 """The harness finds every piece by name, BENCHMARK.json keeps to the
-benchmark's contract, and a new cell or metric is new files only."""
+benchmark's contract, each cell reports one bound class, and a new cell,
+metric or driver is new files only."""
 
 import hashlib
 import json
 import re
 import shutil
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -15,12 +17,36 @@ for _p in (str(REPO), str(REPO / "src")):
     if _p not in sys.path:
         sys.path.insert(0, _p)
 
-from velobench import registry  # noqa: E402
+from velobench import harness, registry  # noqa: E402
 
 BENCH = registry.benchmark()
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 UNIT = re.compile(r"[A-Za-z0-9_/%.-]{1,16}")
 TEXT_OK = re.compile(r"[^\n\t]{1,200}")
+# the class each cell was measured under: a cell never moves to another
+PINNED = {"sift1m-velo.zipf": "engine", "veloann-scan.b4096": "scan",
+          "veloann-scan.b8": "smallbatch"}
+
+
+def bound_class(bench: dict, cell_name: str) -> str:
+    """The suffix X that the cell's end-to-end metrics share: exactly
+    ``{qps.X, p95_ms.X, recall_at_10.X, setup_s}`` as the ``workloads``
+    lists of ``bench`` give them, and every per-layer metric of the cell
+    moving ``qps.X``.  Raises ``ValueError`` where the lists make no such
+    class."""
+    names = {m["name"] for m in registry.metrics_for(bench, cell_name, False)}
+    classes = {n.split(".", 1)[1] for n in names if n.startswith("qps.")}
+    if len(classes) != 1:
+        raise ValueError(f"{cell_name} reports qps of {len(classes)} classes: {sorted(classes)}")
+    x = classes.pop()
+    want = {f"qps.{x}", f"p95_ms.{x}", f"recall_at_10.{x}", "setup_s"}
+    if names != want:
+        raise ValueError(f"{cell_name} reports {sorted(names)}, not class {x}'s {sorted(want)}")
+    traced = registry.metrics_for(bench, cell_name, True)
+    moves = {m["moves"] for m in traced}
+    if moves != {f"qps.{x}"}:
+        raise ValueError(f"{cell_name}'s per-layer metrics move {sorted(moves)}, not qps.{x}")
+    return x
 
 
 def test_top_level_keys():
@@ -59,11 +85,8 @@ def test_cell_entry_finds_its_files(entry):
     assert hasattr(registry.driver(cell["driver"]), "Driver")
     assert registry.config(cell["config"])["name"] == cell["config"]
     assert cell["limits"]["bad_answers"] == 0
-    names = {m["name"] for m in registry.metrics_for(BENCH, entry["name"], False)}
-    part = cell["driver"]
-    assert {f"qps.{part}", f"p95_ms.{part}", f"recall_at_10.{part}", "setup_s"} == names
-    traced = registry.metrics_for(BENCH, entry["name"], True)
-    assert traced and {m["moves"] for m in traced} == {f"qps.{part}"}
+    part = bound_class(BENCH, entry["name"])
+    assert PINNED.get(entry["name"], part) == part
 
 
 @pytest.mark.parametrize("entry", BENCH["end_to_end"] + BENCH["per_layer"],
@@ -101,35 +124,160 @@ def _digests(root: Path) -> dict:
             and "cache" not in p.parts}
 
 
-def test_a_new_cell_and_metric_are_new_files_only(tmp_path):
+def _copy(tmp_path: Path) -> tuple[Path, dict]:
+    """A copy of the benchmark's folder and of BENCHMARK.json under
+    ``tmp_path``: (the folder, its digests)."""
     here = tmp_path / "velobench"
     shutil.copytree(registry.HERE, here, ignore=shutil.ignore_patterns("__pycache__", "cache"))
     shutil.copy(REPO / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
-    before = _digests(here)
+    return here, _digests(here)
+
+
+def _join(bench: dict, cell_name: str, part: str) -> None:
+    """List ``cell_name`` under class ``part``'s three end-to-end metrics."""
+    for m in bench["end_to_end"]:
+        if m["name"] in (f"qps.{part}", f"p95_ms.{part}", f"recall_at_10.{part}"):
+            m["workloads"].append(cell_name)
+
+
+def test_a_new_cell_and_metric_are_new_files_only(tmp_path):
+    here, before = _copy(tmp_path)
 
     cell = json.loads((here / "workloads" / "veloann-scan.b4096.json").read_text())
-    cell["traffic"].update(name="b8", batch=8)
-    cell["why"] = "scan_search calls of 8 queries: the dense work bypassed, launches set the pace"
-    (here / "workloads" / "veloann-scan.b8.json").write_text(json.dumps(cell))
+    cell["traffic"].update(name="b64", batch=64)
+    cell["why"] = "scan_search calls of 64 queries: between the interactive and the batched scan"
+    (here / "workloads" / "veloann-scan.b64.json").write_text(json.dumps(cell))
     (here / "metrics" / "scan.calls.py").write_text(
         'UNIT, BETTER = "calls", "higher"\n\n\ndef read(run):\n    return run.calls\n')
     bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
-    bench["workloads"].append({"name": "veloann-scan.b8", "config": "veloann-scan",
-                               "traffic": "b8", "chips": 1, "why": cell["why"]})
+    bench["workloads"].append({"name": "veloann-scan.b64", "config": "veloann-scan",
+                               "traffic": "b64", "chips": 1, "why": cell["why"]})
+    _join(bench, "veloann-scan.b64", "scan")
     bench["per_layer"].append({"name": "scan.calls", "unit": "calls", "better": "higher",
                                "source": "host_clock", "layer": "velo/scan_search",
-                               "moves": "qps.scan", "workloads": ["veloann-scan.b8"]})
+                               "moves": "qps.scan", "workloads": ["veloann-scan.b64"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
 
     after = _digests(here)
     assert {k: v for k, v in after.items() if k in before} == before
-    assert set(after) - set(before) == {"workloads/veloann-scan.b8.json", "metrics/scan.calls.py"}
-    found = registry.cell("veloann-scan.b8", here)
-    assert found["traffic"]["batch"] == 8
+    assert set(after) - set(before) == {"workloads/veloann-scan.b64.json", "metrics/scan.calls.py"}
+    found = registry.cell("veloann-scan.b64", here)
+    assert found["traffic"]["batch"] == 64
     assert registry.config(found["config"], here)["name"] == "veloann-scan"
     assert hasattr(registry.driver(found["driver"], here), "Driver")
     b = registry.benchmark(tmp_path)
-    traced = [m["name"] for m in registry.metrics_for(b, "veloann-scan.b8", True)]
+    assert bound_class(b, "veloann-scan.b64") == "scan"
+    traced = [m["name"] for m in registry.metrics_for(b, "veloann-scan.b64", True)]
     assert "scan.calls" in traced and "device.idle_share.engine" not in traced
     run = type("Run", (), {"calls": 7})()
     assert registry.metric("scan.calls", here).read(run) == 7
+
+
+def test_pinned_cells_keep_their_class():
+    cells = {w["name"] for w in BENCH["workloads"]}
+    assert set(PINNED) <= cells
+    assert {name: bound_class(BENCH, name) for name in PINNED} == PINNED
+
+
+def test_a_driver_of_its_own_joins_a_class_with_new_files_only(tmp_path, monkeypatch):
+    """A deployment with a driver, a configuration and a cell of its own
+    reports the ``.scan`` class it is listed under, and runs end to end,
+    with nothing of the benchmark edited but BENCHMARK.json's lists."""
+    here, before = _copy(tmp_path)
+    shutil.copy(here / "drivers" / "scan.py", here / "drivers" / "scan_own.py")
+    cfg = json.loads((here / "configs" / "veloann-scan.json").read_text())
+    cfg["name"] = "own-scan"
+    (here / "configs" / "own-scan.json").write_text(json.dumps(cfg))
+    cell = json.loads((here / "workloads" / "veloann-scan.b4096.json").read_text())
+    cell.update(config="own-scan", driver="scan_own")
+    cell["why"] = "a deployment of its own, driven by its own file, under the scan's bounds"
+    (here / "workloads" / "own-scan.b4096.json").write_text(json.dumps(cell))
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "own-scan", "source": cfg["source"],
+                             "file": "velobench/configs/own-scan.json",
+                             "reduced": cfg["reduced"], "why": cell["why"]})
+    bench["workloads"].append({"name": "own-scan.b4096", "config": "own-scan",
+                               "traffic": "b4096", "chips": 1, "why": cell["why"]})
+    _join(bench, "own-scan.b4096", "scan")
+    for m in bench["per_layer"]:
+        if m["moves"] == "qps.scan":
+            m["workloads"].append("own-scan.b4096")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    after = _digests(here)
+    assert {k: v for k, v in after.items() if k in before} == before
+    assert set(after) - set(before) == {"drivers/scan_own.py", "configs/own-scan.json",
+                                        "workloads/own-scan.b4096.json"}
+    b = registry.benchmark(tmp_path)
+    assert bound_class(b, "own-scan.b4096") == "scan"
+    assert {name: bound_class(b, name) for name in PINNED} == PINNED
+
+    monkeypatch.setattr(registry, "HERE", here)
+    found = registry.cell("own-scan.b4096")
+    assert found["driver"] == "scan_own" and registry.config(found["config"])["name"] == "own-scan"
+    cfg.update(n=3000, d=32, chunk=1024)
+    found["traffic"].update(pool=200, batch=32, sample=40)
+    result, _ = harness.run_cell("own-scan.b4096", 2**31 + 77, 0.3, False, "cpu",
+                                 time.perf_counter(), bench=b, cell=found, cfg=cfg,
+                                 log=lambda msg: None)
+    assert result["correct"] is True
+    assert set(result["metrics"]) == {"qps.scan", "p95_ms.scan", "recall_at_10.scan", "setup_s"}
+
+
+def _moved(bench: dict, metric: str, cell_name: str, to: str | None) -> dict:
+    """A copy of ``bench`` with ``cell_name`` taken off ``metric``'s list
+    and put on ``to``'s (or on none)."""
+    bench = json.loads(json.dumps(bench))
+    for m in bench["end_to_end"]:
+        if m["name"] == metric:
+            m["workloads"].remove(cell_name)
+        if m["name"] == to:
+            m["workloads"].append(cell_name)
+    return bench
+
+
+@pytest.mark.parametrize("metric,to", [
+    ("recall_at_10.scan", "recall_at_10.engine"),
+    ("p95_ms.scan", "p95_ms.smallbatch"),
+    ("qps.scan", "qps.engine"),
+    ("recall_at_10.scan", None),
+], ids=lambda v: str(v))
+def test_a_cell_that_mixes_two_classes_fails(metric, to):
+    assert bound_class(BENCH, "veloann-scan.b4096") == "scan"
+    with pytest.raises(ValueError):
+        bound_class(_moved(BENCH, metric, "veloann-scan.b4096", to), "veloann-scan.b4096")
+
+
+def test_a_cell_on_two_classes_fails():
+    bench = json.loads(json.dumps(BENCH))
+    _join(bench, "veloann-scan.b8", "scan")
+    with pytest.raises(ValueError, match="2 classes"):
+        bound_class(bench, "veloann-scan.b8")
+
+
+@pytest.mark.parametrize("cell_name,other", [
+    ("veloann-scan.b4096", "qps.engine"), ("veloann-scan.b8", "qps.scan"),
+    ("sift1m-velo.zipf", "qps.smallbatch")])
+def test_a_per_layer_metric_that_moves_another_class_fails(cell_name, other):
+    bench = json.loads(json.dumps(BENCH))
+    traced = [m for m in bench["per_layer"] if cell_name in m["workloads"]]
+    traced[0]["moves"] = other
+    with pytest.raises(ValueError, match="per-layer"):
+        bound_class(bench, cell_name)
+
+
+def test_b8_is_found_and_reports_the_smallbatch_class():
+    cell = registry.cell("veloann-scan.b8")
+    assert cell["driver"] == "scan" and cell["config"] == "veloann-scan" and cell["chips"] == 1
+    assert cell["traffic"] == {"name": "b8", "pool": 10000, "query_skew": 1.2, "batch": 8,
+                               "sample": 1024}
+    assert cell["limits"] == registry.cell("veloann-scan.b4096")["limits"]
+    assert bound_class(BENCH, "veloann-scan.b8") == "smallbatch"
+    untraced = {m["name"] for m in registry.metrics_for(BENCH, "veloann-scan.b8", False)}
+    assert untraced == {"qps.smallbatch", "p95_ms.smallbatch", "recall_at_10.smallbatch",
+                        "setup_s"}
+    traced = {m["name"] for m in registry.metrics_for(BENCH, "veloann-scan.b8", True)}
+    assert traced == {"scan.launches_per_call.smallbatch", "device.idle_share.smallbatch"}
+    for name in untraced | traced:  # each read by the quantity's own reader
+        assert registry.metric(name).__file__ == str(
+            registry.HERE / "metrics" / f"{name.rsplit('.', 1)[0]}.py")
