@@ -22,7 +22,10 @@ Phases (each one that fails ends the run with a non-zero exit):
               sweeps at scan_search's chunk and tail (B 8 and 64);
               scan_select (the scan's stage-1 chunk epilogue) at B 4096 x
               32 768 rows, first and mid-scan, B 8 and 64, and the tail,
-              bit for bit against the plain chain
+              bit for bit against the plain chain; binary_ip and
+              scan_select's inner-product instantiation at text2image-scan's
+              B 4096 x 32 768 x D 224 (first, mid-scan and the 19 813-row
+              tail; binary_ip on the tensor cores)
               (fp32 rows bounded at the TF32 peak, the fp32 peak beside it;
               the fp32 and bf16 kernels must show tensor-core instructions
               in cuobjdump -sass).  Max error, kernel,
@@ -532,18 +535,21 @@ def check_int4_dist(dev, gen, B, N, d, T, gather) -> dict:
     )
 
 
-def check_scan_select(dev, gen, B: int, L: int, C: int, mid: bool) -> dict:
-    """One scan_select row: a chunk of L rows for B bf16 unit queries at d =
-    128 (codes, norms and ip_bar from the seed), from the first carry (the
-    full select of every row) or from the carry of a chunk before it (the
-    filter), held bit for bit against the plain chain on the same product.
-    The bound counts the bytes once: the (B, L) fp32 product, the chunk's
-    10 bytes a row of tables, the queries' 4 bytes and the carry in and
-    out."""
-    d = 128
+def check_scan_select(dev, gen, B: int, L: int, C: int, mid: bool, d: int = 128,
+                      ip: bool = False) -> dict:
+    """One scan_select row: a chunk of L rows for B bf16 unit queries at
+    width d (codes, norms and ip_bar from the seed), from the first carry
+    (the full select of every row) or from the carry of a chunk before it
+    (the filter), held bit for bit against the plain chain on the same
+    product; ``ip`` takes inner product's instantiation (a per-row cr from
+    the seed, ``tables(..., cr=...)`` and ``estimate_ip``).  The bound counts
+    the bytes once: the (B, L) fp32 product, the chunk's 10 bytes a row of
+    tables, the query table's 4 bytes a query (inner product's 2) and the
+    carry in and out."""
     codes = torch.randint(0, 256, (2 * L, d // 8), generator=gen, device=dev, dtype=torch.uint8)
     norms = torch.rand(2 * L, generator=gen, device=dev) * 2 + 0.25
     ipb = torch.rand(2 * L, generator=gen, device=dev) * 0.9 + 0.05
+    cr = torch.randn(2 * L, generator=gen, device=dev) * 0.5 if ip else None
     q = torch.randn(B, d, generator=gen, device=dev)
     q = (q / torch.linalg.vector_norm(q, dim=1, keepdim=True)).to(torch.bfloat16)
     qnorm = torch.rand(B, 1, generator=gen, device=dev) * 1.5 + 0.5
@@ -552,27 +558,34 @@ def check_scan_select(dev, gen, B: int, L: int, C: int, mid: bool) -> dict:
     lo = L if mid else 0
     if mid:
         carry = sel_ref.scan_select_ref(bip_ops.binary_ip(q, codes[:L]), qnorm, norms[:L],
-                                        ipb[:L], d, C, 0, carry)
+                                        ipb[:L], d, C, 0, carry,
+                                        cr=None if cr is None else cr[:L])
     g = bip_ops.binary_ip(q, codes[lo:lo + L])
-    qtab, rtab, ipt = sel_kernel.tables(qnorm, norms, ipb)
+    qtab, rtab, ipt = sel_kernel.tables(qnorm, norms, ipb, cr)
     rows = slice(lo, lo + L)
+    ip0 = sel_kernel.ip_launches
 
     def kernel():
         return sel_kernel.scan_select_cuda(g, qtab, rtab[rows], ipt[rows], d, C, lo, carry)
 
     def plain():
-        return sel_ref.scan_select_ref(g, qnorm, norms[rows], ipb[rows], d, C, lo, carry)
+        return sel_ref.scan_select_ref(g, qnorm, norms[rows], ipb[rows], d, C, lo, carry,
+                                       cr=None if cr is None else cr[rows])
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    shape = f"B={B} L={L} C={C} {'mid-scan' if mid else 'first chunk'}"
+    shape = (f"{'inner product ' if ip else ''}B={B} L={L} C={C} "
+             f"{'mid-scan' if mid else 'first chunk'}")
+    require(sel_kernel.ip_launches - ip0 == ip,
+            f"scan_select at {shape} took the other metric's instantiation")
     same = torch.equal(got[1], want[1]) and torch.equal(got[0].view(torch.int16),
                                                         want[0].view(torch.int16))
     require(same, f"scan_select disagrees with its plain version at {shape}")
-    nbytes = B * L * 4 + L * 10 + B * 4 + 2 * B * C * 10
+    nbytes = B * L * 4 + L * 10 + B * (2 if ip else 4) + 2 * B * C * 10
     b_ms, b_by = bound_ms(nbytes, 11 * B * L)
     return dict(
-        kernel="scan_select", entry="scan_select", path="filter" if mid else "full select",
+        kernel="scan_select", entry="scan_select_ip" if ip else "scan_select",
+        path="filter" if mid else "full select",
         shape=shape, B=B, N=L, d=d, table=2 * L, dtype="float32",
         max_abs_err=float((got[0].float() - want[0].float()).abs().nan_to_num().max()),
         ms=time_ms(kernel), plain_ms=time_ms(plain), library_ms=None,
@@ -613,6 +626,10 @@ def phase_kernels(dev) -> list[dict]:
     for B in (8, 64):
         for N in (32_768, 16_960):
             rows.append(check_binary_ip(dev, gen, B, N, 128, N, False, torch.bfloat16))
+    # text2image-scan's stage-1 chunk: B 4 096 x 32 768 at the padded D 224
+    rows.append(check_binary_ip(dev, gen, 4096, 32_768, 224, 32_768, False, torch.bfloat16))
+    require(rows[-1]["path"] == "tensor cores",
+            f"binary_ip at {rows[-1]['shape']} is not on the tensor-core path")
     print(f"{'kernel':10} {'entry':14} {'path':12} {'B':>2} {'N':>8} {'d':>4} {'table':>8} "
           f"{'q':>8} {'max_err':>9} {'ms':>9} {'plain_ms':>9} {'lib_ms':>10} {'bound_ms':>9} "
           f"{'dev_us':>8} {'pl_dev_us':>9} {'prev_ms':>8} by")
@@ -638,8 +655,13 @@ def phase_kernels(dev) -> list[dict]:
            check_scan_select(dev, gen, 4096, 32_768, 64, True)]
     sel += [check_scan_select(dev, gen, B, 32_768, 64, True) for B in (8, 64)]
     sel.append(check_scan_select(dev, gen, 64, 16_960, 64, True))
+    # inner product's instantiation at text2image-scan's shape (D 224): the
+    # first chunk, a middle one and the 19 813-row tail (no multiple of 4:
+    # the one-float path)
+    sel += [check_scan_select(dev, gen, 4096, L, 64, mid, 224, ip=True)
+            for L, mid in ((32_768, False), (32_768, True), (19_813, True))]
     for r in sel:
-        print(f"scan_select {r['path']:11} {r['shape']:34} equal  ms {r['ms']:.5f} "
+        print(f"{r['entry']:14} {r['path']:11} {r['shape']:49} equal  ms {r['ms']:.5f} "
               f"plain_ms {r['plain_ms']:.5f} bound_ms {r['bound_ms']:.6f} ({r['bound_by']}) "
               f"dev_us {_us(r['device_us'])} pl_dev_us {_us(r['plain_device_us'])}")
     return rows + sel
@@ -1122,7 +1144,7 @@ def check_scan_chunks(index, queries: torch.Tensor) -> dict:
     """binary_ip against binary_ip_ref on each stage-1 launch of a scan:
     the scan's own bf16 unit queries and its chunk views of the codes (the
     tail too).  Every chunk must take the tensor-core path."""
-    _, _, qunit = batch_search._prepare_queries(index, queries.to(index.device))
+    _, _, qunit, _ = batch_search._prepare_queries(index, queries.to(index.device))
     q = qunit.to(torch.bfloat16)
     codes = index.binary_codes[:-1]
     n, step, err = codes.shape[0], scan_search.DEFAULT_CHUNK, 0.0

@@ -4,8 +4,10 @@ An index is the quantized base (``QuantizedBase``) and the proximity graph
 (``VamanaGraph``).  Another build of the same system — the JAX package, or a
 saved image — hands them over as plain values: NumPy arrays, ints, floats and
 the affinity map as a dict.  ``index_from_reference`` checks that every field
-is present with the type this package stores, and copies the arrays, so both
-sides then search one index bit for bit without sharing memory.
+is present with the type this package stores (``metric``, ``in_dim`` and
+``cr``, which the reference's squared-L2 base lacks, may be left out), and
+copies the arrays, so both sides then search one index bit for bit without
+sharing memory.
 
 The ``velo`` device plane's image (``velo.index.DeviceIndex``: the tables
 with the sentinel row appended, adjacency with -1 padding replaced by n)
@@ -56,8 +58,13 @@ def _fields(cls) -> set[str]:
     return {f.name for f in dataclasses.fields(cls)}
 
 
+# the port's inner-product fields of QuantizedBase, which the reference's
+# squared-L2 base lacks
+_OPTIONAL = frozenset({"metric", "in_dim", "cr"})
+
+
 def _check_keys(kind: str, given: dict, cls) -> None:
-    missing = _fields(cls) - set(given)
+    missing = _fields(cls) - set(given) - _OPTIONAL
     extra = set(given) - _fields(cls)
     if missing or extra:
         raise ValueError(
@@ -84,6 +91,9 @@ def index_from_reference(
         **{k: _array("qb", k, qb[k], t) for k, t in _QB_ARRAYS.items()},
         dim=int(qb["dim"]),
         ext_bits=int(qb["ext_bits"]),
+        metric=str(qb.get("metric", "l2")),
+        in_dim=None if qb.get("in_dim") is None else int(qb["in_dim"]),
+        cr=None if qb.get("cr") is None else _array("qb", "cr", qb["cr"], np.float32),
     )
     n = out_qb.binary_codes.shape[0]
     if out_qb.binary_codes.shape != (n, out_qb.dim // 8):

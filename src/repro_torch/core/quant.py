@@ -23,6 +23,19 @@ We implement the practical core of RaBitQ faithfully:
 The device plane re-implements both distance evaluations as CUDA kernels
 (kernels/binary_ip, kernels/int4_dist); this module is their numpy oracle and
 the host plane's implementation.
+
+Inner product (``metric="ip"``, served by ``velo.scan_search``).  With the
+centroid c, ``<q, o> = <q, c> + <q - c, o - c> + <c, o - c>``: the first term
+is one number a query, the middle one is what the codes estimate (RaBitQ's
+``|q - c| |o - c| est_cos``, the same sign codes, norms and ``ip_bar`` as
+squared L2's), and the last is stored a row, ``cr`` (float32, computed in
+float64).  Where the width d is not a multiple of 32, an inner-product
+encoding pads every vector with zeros to D, the next multiple of 32, and
+rotates by a seeded D x D orthonormal matrix, as RaBitQ pads its dimension:
+the tensor cores' sign product takes D, and the padded coordinates change no
+inner product and no norm.  The codes, ``ip_bar``'s sqrt(D) and the extended
+codes are over D; ``dim`` is D and ``in_dim`` is d.  The squared-L2 encoding
+never pads: it is the same bits as before at every d.
 """
 
 from __future__ import annotations
@@ -30,6 +43,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+METRICS = ("l2", "ip")
 
 
 def _random_rotation(d: int, seed: int) -> np.ndarray:
@@ -85,6 +100,13 @@ class QuantizedBase:
     dim: int
     ext_bits: int = 4           # paper default 4; 8 supported (ExtRaBitQ is
                                 # bit-budget-parametric)
+    metric: str = "l2"          # "l2" (squared L2) or "ip" (inner product)
+    in_dim: int | None = None   # the vectors' own width (None: dim); dim pads it
+    cr: np.ndarray | None = None  # (n,) float32 <c, o - c>, inner product only
+
+    def __post_init__(self):
+        if self.in_dim is None:
+            self.in_dim = self.dim
 
     # ---- memory accounting (paper Table 3's "memory footprint" components) ----
     def resident_bytes(self) -> int:
@@ -96,6 +118,7 @@ class QuantizedBase:
             + self.norms.nbytes
             + self.ip_bar.nbytes
             + self.centroid.nbytes
+            + (0 if self.cr is None else self.cr.nbytes)
         )
 
     def record_payload(self, i: int) -> bytes:
@@ -116,20 +139,45 @@ class QuantizedBase:
         return packed_rows.astype(np.float32)
 
 
+def padded_dim(d: int, metric: str) -> int:
+    """The width an encoding of d-wide vectors works in: d for squared L2,
+    the next multiple of 32 for inner product."""
+    return d if metric == "l2" else -(-d // 32) * 32
+
+
+def centroid_terms(base: np.ndarray, centroid: np.ndarray, block: int = 1 << 16) -> np.ndarray:
+    """(n,) float32 <c, o - c> of every row o, each computed in float64 (in
+    blocks of rows) and rounded once."""
+    c = centroid.astype(np.float64)
+    out = np.empty(base.shape[0], dtype=np.float32)
+    for s in range(0, base.shape[0], block):
+        out[s:s + block] = (base[s:s + block].astype(np.float64) - c) @ c
+    return out
+
+
 class RabitQuantizer:
     """Fits the rotation and produces both code levels."""
 
-    def __init__(self, dim: int, seed: int = 0, ext_bits: int = 4):
+    def __init__(self, dim: int, seed: int = 0, ext_bits: int = 4, metric: str = "l2"):
         assert ext_bits in (4, 8), "extended codes: 4 (paper default) or 8 bits"
+        if metric not in METRICS:
+            raise ValueError(f"metric must be one of {METRICS}, got {metric!r}")
         self.dim = dim
         self.seed = seed
         self.ext_bits = ext_bits
         self.levels = (1 << ext_bits) - 1
+        self.metric = metric
 
     def fit_encode(self, base: np.ndarray) -> QuantizedBase:
         n, d = base.shape
         assert d == self.dim
         centroid = base.mean(axis=0).astype(np.float32)
+        cr = centroid_terms(base, centroid) if self.metric == "ip" else None
+        D = padded_dim(d, self.metric)
+        if D != d:  # zeros past d: no inner product and no norm changes
+            base = np.concatenate([base, np.zeros((n, D - d), dtype=base.dtype)], axis=1)
+            centroid = np.concatenate([centroid, np.zeros(D - d, dtype=np.float32)])
+            d = D
         rot = _random_rotation(d, self.seed)
         resid = (base - centroid) @ rot.T  # rotated residuals; L2 preserved
 
@@ -167,6 +215,9 @@ class RabitQuantizer:
             ext_step=step,
             dim=d,
             ext_bits=self.ext_bits,
+            metric=self.metric,
+            in_dim=self.dim,
+            cr=cr,
         )
 
     # ------------------------------------------------------------------ query

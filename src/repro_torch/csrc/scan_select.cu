@@ -7,6 +7,16 @@
 // the running carry: it writes the new (B, C) carry of values and ids, and
 // nothing of the (B, L) estimate.
 //
+// Inner product (scan_select_ip_kernel, the entry scan_select_ip_bf16): the
+// same pass with the estimate of the negated inner product less the query's
+// <q, c>, which orders nothing within a row,
+//   est = -(cr + (qn nr) clip(bf16(g / sqrt(d)) / ipb, -1, 1)),
+// from a per-row cr = bf16(<c, o - c>) in the table's slot of nr^2 and a
+// query table of qn alone, one bf16 a query (kernels/scan_select/ref.py::
+// estimate_ip).
+// The two kernels differ in that last step alone, and carry their own names
+// so that a device trace tells them apart.
+//
 // Order.  Candidates are ordered by the bf16 value, then by the global row
 // id: what torch.argsort(stable=True) of [carry | chunk] gives, since every
 // chunk id is above every carried id (the first carry is bf16(3e38) with
@@ -80,7 +90,7 @@ enum : int { kIdle = 0, kFilter = 1, kHistHi = 2, kHistLo = 3, kCollect = 4 };
 
 struct Params {
   const float* g;          // (B, L) fp32, row-major
-  const uint32_t* qtab;    // (B,) bf16 pairs: qn^2, 2 qn
+  const uint32_t* qtab;    // (B,) bf16 pairs: qn^2, 2 qn (inner product: (B,) bf16 qn)
   const uint2* rtab;       // (L,) fp32(1 / ipb) bits; nr, nr^2 as a bf16 pair
   const uint16_t* ipb;     // (L,) bf16(max(ip_bar, 1e-6)), read where the division must be IEEE
   const uint16_t* carry_vals;  // (B, C) bf16 bits, or null: no carry
@@ -135,7 +145,10 @@ __device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t x) {
 }
 
 // the chain after the quotient: clip, then qn^2 + nr^2 - ((2 qn) nr) clip,
-// for a pair of entries of one row (bf16 pairs in and out)
+// for a pair of entries of one row (bf16 pairs in and out); under IP (nr2
+// holding cr and tq holding qn) -(cr + (qn nr) clip), the sum rounded to
+// bf16 and then negated, as PyTorch negates the bf16 sum
+template <bool IP>
 __device__ __forceinline__ uint32_t finish_pair(uint32_t quot, float nr0, float nr1, float nr20,
                                                 float nr21, float qn2, float tq) {
   const __nv_bfloat162 c2 = __hmin2_nan(__hmax2_nan(as_bf162(quot), __float2bfloat162_rn(-1.f)),
@@ -144,8 +157,12 @@ __device__ __forceinline__ uint32_t finish_pair(uint32_t quot, float nr0, float 
   const uint32_t t1 = pack_bf16(__fmul_rn(tq, nr0), __fmul_rn(tq, nr1));
   const uint32_t t2 =
       pack_bf16(__fmul_rn(lo_f32(t1), lo_f32(c)), __fmul_rn(hi_f32(t1), hi_f32(c)));
-  const uint32_t sq = pack_bf16(__fadd_rn(qn2, nr20), __fadd_rn(qn2, nr21));
-  return pack_bf16(__fsub_rn(lo_f32(sq), lo_f32(t2)), __fsub_rn(hi_f32(sq), hi_f32(t2)));
+  if constexpr (IP) {
+    return pack_bf16(__fadd_rn(nr20, lo_f32(t2)), __fadd_rn(nr21, hi_f32(t2))) ^ 0x80008000u;
+  } else {
+    const uint32_t sq = pack_bf16(__fadd_rn(qn2, nr20), __fadd_rn(qn2, nr21));
+    return pack_bf16(__fsub_rn(lo_f32(sq), lo_f32(t2)), __fsub_rn(hi_f32(sq), hi_f32(t2)));
+  }
 }
 
 // Two entries' estimates, the quotient bf16(g' / ipb) (g' = bf16(g / sqrt
@@ -156,22 +173,24 @@ __device__ __forceinline__ uint32_t finish_pair(uint32_t quot, float nr0, float 
 // the operands' significands).  That holds while g' * y is a normal number
 // or 0 and y is normal (the table stores NaN for y otherwise); slow is set
 // where it may not, and the caller then takes ieee_pair.
+template <bool IP>
 __device__ __forceinline__ uint32_t fast_pair(float g0, float g1, float y0, float y1, float nr0,
                                               float nr1, float nr20, float nr21, float qn2,
                                               float tq, float inv, bool& slow) {
   const uint32_t gs = pack_bf16(__fmul_rn(g0, inv), __fmul_rn(g1, inv));
   const float q0 = __fmul_rn(lo_f32(gs), y0), q1 = __fmul_rn(hi_f32(gs), y1);
   slow |= (!(fabsf(q0) >= 0x1p-100f) && q0 != 0.f) || (!(fabsf(q1) >= 0x1p-100f) && q1 != 0.f);
-  return finish_pair(pack_bf16(q0, q1), nr0, nr1, nr20, nr21, qn2, tq);
+  return finish_pair<IP>(pack_bf16(q0, q1), nr0, nr1, nr20, nr21, qn2, tq);
 }
 
 // the same with the IEEE division of PyTorch's chain, b = bf16(max(ip_bar, 1e-6))
+template <bool IP>
 __device__ __forceinline__ uint32_t ieee_pair(float g0, float g1, float b0, float b1, float nr0,
                                               float nr1, float nr20, float nr21, float qn2,
                                               float tq, float inv) {
   const uint32_t gs = pack_bf16(__fmul_rn(g0, inv), __fmul_rn(g1, inv));
-  return finish_pair(pack_bf16(__fdiv_rn(lo_f32(gs), b0), __fdiv_rn(hi_f32(gs), b1)), nr0, nr1,
-                     nr20, nr21, qn2, tq);
+  return finish_pair<IP>(pack_bf16(__fdiv_rn(lo_f32(gs), b0), __fdiv_rn(hi_f32(gs), b1)), nr0,
+                         nr1, nr20, nr21, qn2, tq);
 }
 
 // One pass over the chunk for every row whose mode is not kIdle.  Each
@@ -185,7 +204,7 @@ __device__ __forceinline__ uint32_t ieee_pair(float g0, float g1, float b0, floa
 // single entries only where a pair may enter.  ORDERED (the collect) ranks
 // the entries at each row's key K in column order with a block-wide scan a
 // step; every thread runs every step.
-template <int R, int VEC, bool ORDERED>
+template <int R, int VEC, bool IP, bool ORDERED>
 __device__ void run_pass(const Params& p, Row* rows, uint64_t* buf, uint32_t* hist,
                          uint64_t* scan, uint4* stage) {
   static_assert(R <= 4, "the collect packs R counts of 16 bits");
@@ -266,7 +285,7 @@ __device__ void run_pass(const Params& p, Row* rows, uint64_t* buf, uint32_t* hi
 #pragma unroll
       for (int h = 0; h < P; ++h) {
         const int v0 = 2 * h, v1 = VEC > 1 ? 2 * h + 1 : 2 * h;
-        e[r][h] = fast_pair(gv[r][v0], gv[r][v1], y[v0], y[v1], nr[v0], nr[v1], nr2[v0],
+        e[r][h] = fast_pair<IP>(gv[r][v0], gv[r][v1], y[v0], y[v1], nr[v0], nr[v1], nr2[v0],
                             nr2[v1], qn2[r], tq[r], p.inv, slow);
       }
     if (slow && c < p.L) {  // some quotient outside fast_pair's range: IEEE division
@@ -278,7 +297,7 @@ __device__ void run_pass(const Params& p, Row* rows, uint64_t* buf, uint32_t* hi
 #pragma unroll
         for (int h = 0; h < P; ++h) {
           const int v0 = 2 * h, v1 = VEC > 1 ? 2 * h + 1 : 2 * h;
-          e[r][h] = ieee_pair(gv[r][v0], gv[r][v1], b[v0], b[v1], nr[v0], nr[v1], nr2[v0],
+          e[r][h] = ieee_pair<IP>(gv[r][v0], gv[r][v1], b[v0], b[v1], nr[v0], nr[v1], nr2[v0],
                               nr2[v1], qn2[r], tq[r], p.inv);
         }
     }
@@ -435,7 +454,7 @@ __device__ void find_bin(const uint32_t* hist, int target, int lane, int& bin, i
 // already taken: the low-byte pass, then the collect, which leaves each
 // such row's C best entries below T (fewer where fewer lie below it) in
 // its buffer.
-template <int R, int VEC>
+template <int R, int VEC, bool IP>
 __device__ void full_select(const Params& p, Row* rows, uint64_t* buf, uint32_t* hist,
                             uint64_t* scan, uint4* stage, int* flags) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, C = p.C;
@@ -458,7 +477,7 @@ __device__ void full_select(const Params& p, Row* rows, uint64_t* buf, uint32_t*
   }
   __syncthreads();
   if (flags[2]) {
-    run_pass<R, VEC, false>(p, rows, buf, hist, scan, stage);
+    run_pass<R, VEC, IP, false>(p, rows, buf, hist, scan, stage);
     __syncthreads();
   }
   if (warp < R && rows[warp].full) {
@@ -481,7 +500,7 @@ __device__ void full_select(const Params& p, Row* rows, uint64_t* buf, uint32_t*
     }
   }
   __syncthreads();
-  run_pass<R, VEC, true>(p, rows, buf, hist, scan, stage);
+  run_pass<R, VEC, IP, true>(p, rows, buf, hist, scan, stage);
   __syncthreads();
   if (tid < R && rows[tid].full) {
     Row& w = rows[tid];
@@ -490,8 +509,8 @@ __device__ void full_select(const Params& p, Row* rows, uint64_t* buf, uint32_t*
   __syncthreads();
 }
 
-template <int R, int VEC>
-__global__ void __launch_bounds__(kThreads, 4) scan_select_kernel(const Params p) {
+template <int R, int VEC, bool IP>
+__device__ __forceinline__ void scan_select_body(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint4* stage = reinterpret_cast<uint4*>(smem);
   Row* rows = reinterpret_cast<Row*>(stage + kStages * (R + 2) * kThreads);
@@ -529,12 +548,18 @@ __global__ void __launch_bounds__(kThreads, 4) scan_select_kernel(const Params p
     w.full = w.mode == kHistHi;
     w.cnt = 0;
     w.bin = w.below = w.key = w.need = w.m = 0;
-    const uint32_t q = w.b < 0 ? 0u : p.qtab[w.b];
-    w.qn2 = lo_f32(q);
-    w.tq = hi_f32(q);
+    if constexpr (IP) {
+      const uint32_t q = w.b < 0 ? 0u : reinterpret_cast<const uint16_t*>(p.qtab)[w.b];
+      w.qn2 = 0.f;
+      w.tq = lo_f32(q);
+    } else {
+      const uint32_t q = w.b < 0 ? 0u : p.qtab[w.b];
+      w.qn2 = lo_f32(q);
+      w.tq = hi_f32(q);
+    }
   }
   __syncthreads();
-  run_pass<R, VEC, false>(p, rows, buf, hist, scan, stage);
+  run_pass<R, VEC, IP, false>(p, rows, buf, hist, scan, stage);
   __syncthreads();
   if (tid == 0) {
     int late = 0, full = 0;
@@ -556,10 +581,10 @@ __global__ void __launch_bounds__(kThreads, 4) scan_select_kernel(const Params p
   }
   __syncthreads();
   if (flags[0]) {  // the high-byte pass of the rows that overflowed
-    run_pass<R, VEC, false>(p, rows, buf, hist, scan, stage);
+    run_pass<R, VEC, IP, false>(p, rows, buf, hist, scan, stage);
     __syncthreads();
   }
-  if (flags[1]) full_select<R, VEC>(p, rows, buf, hist, scan, stage, flags);
+  if (flags[1]) full_select<R, VEC, IP>(p, rows, buf, hist, scan, stage, flags);
 
   // each candidate's place among the carry (sorted) and the buffer
 #pragma unroll 1
@@ -596,13 +621,23 @@ __global__ void __launch_bounds__(kThreads, 4) scan_select_kernel(const Params p
 }
 
 template <int R, int VEC>
+__global__ void __launch_bounds__(kThreads, 4) scan_select_kernel(const Params p) {
+  scan_select_body<R, VEC, false>(p);
+}
+
+template <int R, int VEC>
+__global__ void __launch_bounds__(kThreads, 4) scan_select_ip_kernel(const Params p) {
+  scan_select_body<R, VEC, true>(p);
+}
+
+template <int R, int VEC, bool IP>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const int cin = p.carry_vals ? p.C : 0;
   const size_t smem = static_cast<size_t>(kStages) * (R + 2) * kThreads * 16 +
                       ((R * sizeof(Row) + 15) / 16) * 16 +
                       (static_cast<size_t>(R) * (cin + p.cap) + kWarps) * sizeof(uint64_t) +
                       R * 256 * sizeof(uint32_t);
-  auto kernel = scan_select_kernel<R, VEC>;
+  auto kernel = IP ? scan_select_ip_kernel<R, VEC> : scan_select_kernel<R, VEC>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -612,19 +647,11 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry for ctypes.  g (B, L) fp32 row-major; qtab (B, 2) bf16;
-// rtab (L, 2) int32 and ipb (L,) bf16, the chunk's rows; carry_vals (B, C)
-// bf16 and carry_ids (B, C) int64, sorted ascending by (value, id) in each
-// row with ids below 2^32, or both null for no carry (then L >= C);
-// out_vals (B, C) bf16, out_ids (B, C) int64; full_rows one int64.
-// row0 + L <= 2^32.  Returns the launch's cudaError_t; 0 is success.
-extern "C" int scan_select_bf16(const float* g, const void* qtab, const void* rtab,
-                                const void* ipb, const void* carry_vals, const int64_t* carry_ids,
-                                void* out_vals, int64_t* out_ids, int64_t* full_rows, int B,
-                                int L, int C, int64_t row0, float inv, int device,
-                                void* stream) {
+template <bool IP>
+int scan_select_entry(const float* g, const void* qtab, const void* rtab, const void* ipb,
+                      const void* carry_vals, const int64_t* carry_ids, void* out_vals,
+                      int64_t* out_ids, int64_t* full_rows, int B, int L, int C, int64_t row0,
+                      float inv, int device, void* stream) {
   if (B < 1 || L < 1 || C < 1 || C > kMaxC || row0 < 0 || row0 + L > (int64_t{1} << 32) ||
       (!carry_vals) != (!carry_ids) || (!carry_vals && L < C))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -650,8 +677,37 @@ extern "C" int scan_select_bf16(const float* g, const void* qtab, const void* rt
   const bool vec = L % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wide)
-    err = vec ? launch<2, 4>(p, s) : launch<2, 1>(p, s);
+    err = vec ? launch<2, 4, IP>(p, s) : launch<2, 1, IP>(p, s);
   else
-    err = vec ? launch<1, 4>(p, s) : launch<1, 1>(p, s);
+    err = vec ? launch<1, 4, IP>(p, s) : launch<1, 1, IP>(p, s);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Plain C entries for ctypes.  g (B, L) fp32 row-major; qtab (B, 2) bf16
+// (scan_select_ip_bf16: (B, 1));
+// rtab (L, 2) int32 and ipb (L,) bf16, the chunk's rows; carry_vals (B, C)
+// bf16 and carry_ids (B, C) int64, sorted ascending by (value, id) in each
+// row with ids below 2^32, or both null for no carry (then L >= C);
+// out_vals (B, C) bf16, out_ids (B, C) int64; full_rows one int64.
+// row0 + L <= 2^32.  scan_select_bf16 takes squared L2's tables,
+// scan_select_ip_bf16 inner product's (kernels/scan_select/kernel.py::tables).
+// Each returns the launch's cudaError_t; 0 is success.
+extern "C" int scan_select_bf16(const float* g, const void* qtab, const void* rtab,
+                                const void* ipb, const void* carry_vals, const int64_t* carry_ids,
+                                void* out_vals, int64_t* out_ids, int64_t* full_rows, int B,
+                                int L, int C, int64_t row0, float inv, int device,
+                                void* stream) {
+  return scan_select_entry<false>(g, qtab, rtab, ipb, carry_vals, carry_ids, out_vals, out_ids,
+                                  full_rows, B, L, C, row0, inv, device, stream);
+}
+
+extern "C" int scan_select_ip_bf16(const float* g, const void* qtab, const void* rtab,
+                                   const void* ipb, const void* carry_vals,
+                                   const int64_t* carry_ids, void* out_vals, int64_t* out_ids,
+                                   int64_t* full_rows, int B, int L, int C, int64_t row0,
+                                   float inv, int device, void* stream) {
+  return scan_select_entry<true>(g, qtab, rtab, ipb, carry_vals, carry_ids, out_vals, out_ids,
+                                 full_rows, B, L, C, row0, inv, device, stream);
 }

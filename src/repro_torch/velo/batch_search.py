@@ -31,10 +31,19 @@ INF = 3e38  # float32, as the reference's jnp.float32(3e38)
 
 
 def _prepare_queries(index: DeviceIndex, q: torch.Tensor):
+    """(qr, qnorm, qunit, qc): the rotated residuals ``(q - c) R^T`` (B, dim),
+    their norms (B, 1) and unit vectors, and for an inner-product index each
+    query's ``<q, c>`` (B, 1) (None for squared L2).  Queries of
+    ``index.in_dim`` are padded with zeros to ``index.dim`` first."""
+    if q.shape[1] != index.in_dim:
+        raise ValueError(f"queries of width {q.shape[1]} for an index of width {index.in_dim}")
+    if index.in_dim != index.dim:
+        q = torch.nn.functional.pad(q, (0, index.dim - index.in_dim))
     qr = (q - index.centroid[None, :]) @ index.rotation.T
     qnorm = torch.linalg.vector_norm(qr, dim=1, keepdim=True)
     qunit = qr / torch.clamp_min(qnorm, 1e-12)
-    return qr, qnorm, qunit
+    qc = (q @ index.centroid)[:, None] if index.metric == "ip" else None
+    return qr, qnorm, qunit, qc
 
 
 def _estimate(index: DeviceIndex, ids: torch.Tensor, qunit: torch.Tensor, qnorm: torch.Tensor):
@@ -52,14 +61,20 @@ def _estimate(index: DeviceIndex, ids: torch.Tensor, qunit: torch.Tensor, qnorm:
     return qnorm**2 + nr**2 - 2.0 * qnorm * nr * est_cos
 
 
-def _refine(index: DeviceIndex, ids: torch.Tensor, qr: torch.Tensor):
-    """Level-2 int4 refinement for gathered ids: (B, M) -> (B, M) dist^2."""
+def _refine(index: DeviceIndex, ids: torch.Tensor, qr: torch.Tensor,
+            qc: torch.Tensor | None = None):
+    """Level-2 int4 refinement for gathered ids: (B, M) -> (B, M) dist^2, or
+    for an inner-product index (``qc`` the queries' ``<q, c>``, (B, 1)) the
+    negated inner product ``-((<q, c> + <qr, x>) + cr)``, so that the best
+    rows come first in ascending order under both metrics."""
     d = index.dim
     packed = index.ext_codes[ids].to(torch.int32)        # (B, M, d/2)
     lo4 = (packed & 0xF).to(torch.float32)
     hi4 = ((packed >> 4) & 0xF).to(torch.float32)
     codes = torch.stack([lo4, hi4], dim=-1).reshape(*ids.shape, d)
     x = codes * index.ext_step[ids][..., None] + index.ext_lo[ids][..., None]
+    if index.metric == "ip":
+        return -((qc + torch.einsum("bmd,bd->bm", x, qr)) + index.cr[ids])
     diff = qr[:, None, :] - x
     return torch.einsum("bmd,bmd->bm", diff, diff)
 
@@ -118,8 +133,10 @@ def batch_search(
     int32), on the index's device."""
     dev = index.device
     queries = torch.as_tensor(queries, dtype=torch.float32).to(dev)
+    if index.metric != "l2":
+        raise ValueError("batch_search serves squared L2; scan_search serves inner product")
     B, d = queries.shape
-    qr, qnorm, qunit = _prepare_queries(index, queries)
+    qr, qnorm, qunit, _ = _prepare_queries(index, queries)
     n = index.n
     rows = torch.arange(B, device=dev)
 
